@@ -25,3 +25,8 @@ _cache_dir = os.environ.setdefault(
     'JAX_COMPILATION_CACHE_DIR',
     os.path.expanduser('~/.cache/tts_tpu_xla_tests'))
 enable_compilation_cache(_cache_dir)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'cuda: runs a CUDA kernel on a card; skips where there is none')

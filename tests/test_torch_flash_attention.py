@@ -1,0 +1,131 @@
+"""The fused attention forward of the port: plain version vs the JAX kernel,
+and the CUDA kernel vs the plain version.
+
+On the CPU ``flash_attention`` runs ``attention_plain``; both are held
+against the JAX Pallas kernel in interpret mode and against the JAX
+``attention_reference`` at the float32 bar of the JAX kernel's own tests
+(atol 2e-5, rtol 1e-4).
+
+The kernel itself runs only on a card: those tests carry the ``cuda``
+marker and skip without one. JAX is imported inside the parity tests only,
+so on a machine with a card and no JAX this file runs as
+``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from transformertts_torch.ops.flash_attention import (NEG_INF, attention_plain,
+                                                      flash_attention)
+
+torch.set_num_threads(1)
+
+TOL = dict(atol=2e-5, rtol=1e-4)
+
+# (b, h, tq, tk, d, causal, padded keys)
+CASES = {
+    'padded-keys': (2, 2, 37, 53, 24, False, True),
+    'causal': (2, 2, 41, 41, 24, True, True),
+    'causal-tq-ne-tk': (2, 2, 30, 50, 16, True, False),
+    'tq-gt-tk': (1, 3, 70, 20, 32, False, True),
+    'odd-head-width': (2, 2, 19, 23, 13, False, True),
+    'published-head-width': (2, 2, 33, 33, 192, False, True),
+}
+
+
+def _inputs(b, h, tq, tk, d, padded, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32) for t in (tq, tk, tk))
+    bias = np.zeros((b, tk), np.float32)
+    if padded:
+        bias[0, tk * 3 // 4:] = NEG_INF
+    return q, k, v, bias
+
+
+def _torch(*arrays, device='cpu'):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_matches_jax_kernel_and_reference(case):
+    import jax.numpy as jnp
+    from transformertts_tpu.ops import flash_attention as jfa
+    b, h, tq, tk, d, causal, padded = CASES[case]
+    arrays = _inputs(b, h, tq, tk, d, padded)
+    out = attention_plain(*_torch(*arrays), causal=causal).numpy()
+    jargs = [jnp.asarray(a) for a in arrays]
+    np.testing.assert_allclose(out, np.asarray(jfa.attention_reference(*jargs, causal=causal)),
+                               **TOL)
+    np.testing.assert_allclose(
+        out, np.asarray(jfa.flash_attention(*jargs, causal=causal, interpret=True)), **TOL)
+
+
+def test_fully_masked_rows_are_finite_means_of_v():
+    """Padded batch rows of the serving path mask every key: the row comes
+    out finite, the mean of v over the real keys (as attention_reference)."""
+    import jax.numpy as jnp
+    from transformertts_tpu.ops import flash_attention as jfa
+    q, k, v, bias = _inputs(2, 2, 37, 53, 24, padded=False, seed=3)
+    bias[:] = NEG_INF
+    out = attention_plain(*_torch(q, k, v, bias)).numpy()
+    assert np.isfinite(out).all()
+    ref = jfa.attention_reference(*(jnp.asarray(a) for a in (q, k, v, bias)))
+    np.testing.assert_allclose(out, np.asarray(ref), **TOL)
+    np.testing.assert_allclose(out, np.broadcast_to(v.mean(axis=2, keepdims=True), out.shape),
+                               **TOL)
+
+
+def test_bfloat16_inputs_return_bfloat16():
+    q, k, v, bias = _torch(*_inputs(2, 2, 37, 53, 24, padded=True, seed=2))
+    out = flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), bias)
+    assert out.dtype == torch.bfloat16
+    # bf16 inputs, f32 softmax: the JAX kernel's own bf16 bar
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v, bias),
+                               atol=3e-2, rtol=3e-2)
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching():
+    q, k, v, bias = _torch(*_inputs(2, 2, 37, 53, 24, padded=True))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias, causal=True)
+    assert flash_attention.launches == before
+    torch.testing.assert_close(out, attention_plain(q, k, v, bias, causal=True),
+                               atol=0, rtol=0)
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    q, k, v, bias = (x.to('meta') for x in _torch(*_inputs(1, 1, 8, 8, 8, padded=False)))
+    with pytest.raises(ValueError, match='CUDA'):
+        flash_attention(q, k, v, bias)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('the CUDA kernel runs only on a card')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(c for c in CASES if CASES[c][4] % 8 == 0))
+def test_kernel_matches_plain_on_card(cuda, case):
+    b, h, tq, tk, d, causal, padded = CASES[case]
+    q, k, v, bias = _torch(*_inputs(b, h, tq, tk, d, padded), device=cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out, attention_plain(q, k, v, bias, causal=causal), **TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v, bias = _torch(*_inputs(1, 2, 8, 8, 12, padded=False), device=cuda)
+    with pytest.raises(ValueError, match='head width'):
+        flash_attention(q, k, v, bias)
+    q, k, v, bias = _torch(*_inputs(1, 2, 8, 8, 16, padded=False), device=cuda)
+    with pytest.raises(ValueError, match='contiguous'):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, bias)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half(), bias)

@@ -1,0 +1,74 @@
+"""Batched serving: the port's ``synthesize_lines`` against the JAX one over
+config/test_sentences.txt on the tiny config, and the port's predict_tts CLI.
+
+The JAX side ships PCM16 (peak-normalized, truncated to 1/32767 steps); the
+port returns the same peak-normalized float. Per-sample agreement is held at
+two Griffin-Lim iterations, to 1/32767 for the quantization plus 1e-3 for
+the phase iteration's growth of float32 rounding (test_torch_griffinlim.py);
+at the default 32 iterations lengths and range are checked.
+"""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_nn import jax_and_port_models
+from transformertts_torch.audio import Audio as TAudio
+from transformertts_torch.audio.wav_io import load_wav
+from transformertts_torch.models.synthesis import synthesize_lines as t_synthesize
+from transformertts_tpu.audio import Audio as JAudio
+from transformertts_tpu.models.synthesis import synthesize_lines as j_synthesize
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+LINES = [l for l in (ROOT / 'config' / 'test_sentences.txt').read_text().splitlines()
+         if l.strip()]
+PCM16_STEP = 1.0 / 32767
+
+
+@pytest.fixture(scope='module')
+def models(tmp_path_factory):
+    model_dir = tmp_path_factory.mktemp('tiny')
+    jm, tm = jax_and_port_models(model_dir)
+    return jm, tm, model_dir
+
+
+def test_synthesize_lines_matches_jax(models):
+    jm, tm, _ = models
+    j_wavs = j_synthesize(jm, JAudio.from_config(jm.config), LINES, n_iter=2)
+    t_wavs = t_synthesize(tm, TAudio.from_config(tm.config), LINES, n_iter=2)
+    assert len(t_wavs) == len(j_wavs) == len(LINES)
+    for t, j in zip(t_wavs, j_wavs):
+        assert t.shape == j.shape and t.size > 0
+        np.testing.assert_allclose(t, j, rtol=0, atol=PCM16_STEP + 1e-3)
+
+
+def test_synthesize_lines_default_iterations(models):
+    jm, tm, _ = models
+    j_wavs = j_synthesize(jm, JAudio.from_config(jm.config), LINES, speed_regulator=1.3)
+    t_wavs = t_synthesize(tm, TAudio.from_config(tm.config), LINES[::-1], max_batch=2,
+                          speed_regulator=1.3)[::-1]
+    for t, j in zip(t_wavs, j_wavs):
+        assert t.shape == j.shape
+        assert np.isfinite(t).all() and 0 < np.abs(t).max() <= 1.0
+
+
+def test_lines_without_tokens_give_empty_wavs(models):
+    _, tm, _ = models
+    wavs = t_synthesize(tm, TAudio.from_config(tm.config), ['', LINES[2]], n_iter=1)
+    assert wavs[0].shape == (0,) and wavs[1].size > 0
+
+
+@pytest.mark.parametrize('batched', [True, False])
+def test_predict_tts_writes_a_readable_wav(models, tmp_path, batched):
+    from transformertts_torch import predict_tts
+    _, tm, model_dir = models
+    text = tmp_path / 'lines.txt'
+    text.write_text('\n'.join(LINES[:2]) + '\n')
+    args = ['-p', str(model_dir), '-f', str(text), '-o', str(tmp_path), '--device', 'cpu']
+    predict_tts.main(args + ([] if batched else ['--per_line']))
+    wav, sr = load_wav(next((tmp_path / 'outputs' / 'lines').glob('*.wav')))
+    assert sr == 22050
+    assert wav.size > 0 and np.isfinite(wav).all() and np.abs(wav).max() > 0

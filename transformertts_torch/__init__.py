@@ -1,0 +1,14 @@
+"""transformertts_torch: the PyTorch/CUDA port of ``transformertts_tpu``.
+
+It mirrors the JAX package's layout and names and reads and writes the same
+self-describing model dirs. It imports torch and numpy, never jax; of the
+JAX package it uses only the host text frontend (``transformertts_tpu.text``),
+which imports no jax.
+
+    from transformertts_torch.models import ForwardTransformer
+    from transformertts_torch.audio import Audio
+    model = ForwardTransformer.load_model('/path/to/model_dir', device='cuda')
+    audio = Audio.from_config(model.config)
+    out = model.predict('Please, say something.')
+    wav = audio.reconstruct_waveform(out['mel'], device='cuda')
+"""

@@ -1,0 +1,77 @@
+"""Spectral bases (numpy, host precompute), the counterparts of the bases in
+``transformertts_tpu/audio/spectral.py``: periodic Hann window, Slaney mel
+filterbank (librosa ``htk=False, norm='slaney'``) and the windowed real-DFT
+and inverse-DFT bases that turn the STFT and its inverse into GEMMs."""
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+
+_F_SP = 200.0 / 3            # Slaney: linear below 1 kHz ...
+_MIN_LOG_HZ = 1000.0
+_MIN_LOG_MEL = _MIN_LOG_HZ / _F_SP
+_LOGSTEP = np.log(6.4) / 27.0  # ... logarithmic above
+
+
+def hann_window(win_length: int) -> np.ndarray:
+    """Periodic Hann window (scipy ``get_window('hann', n, fftbins=True)``)."""
+    n = np.arange(win_length)
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
+
+
+def padded_window(n_fft: int, win_length: int) -> np.ndarray:
+    window = hann_window(win_length)
+    pad = (n_fft - win_length) // 2
+    return np.pad(window, (pad, n_fft - win_length - pad))
+
+
+def _hz_to_mel(f):
+    f = np.asarray(f, dtype=np.float64)
+    log_part = _MIN_LOG_MEL + np.log(np.maximum(f, 1e-10) / _MIN_LOG_HZ) / _LOGSTEP
+    return np.where(f >= _MIN_LOG_HZ, log_part, f / _F_SP)
+
+
+def _mel_to_hz(m):
+    m = np.asarray(m, dtype=np.float64)
+    log_part = _MIN_LOG_HZ * np.exp(_LOGSTEP * (m - _MIN_LOG_MEL))
+    return np.where(m >= _MIN_LOG_MEL, log_part, m * _F_SP)
+
+
+@lru_cache(maxsize=8)
+def mel_filterbank(sampling_rate: int, n_fft: int, n_mels: int,
+                   f_min: float, f_max: float) -> np.ndarray:
+    """(n_mels, 1 + n_fft//2) Slaney-normalized triangular mel filterbank."""
+    if f_max is None:
+        f_max = sampling_rate / 2.0
+    fft_freqs = np.linspace(0.0, sampling_rate / 2.0, 1 + n_fft // 2)
+    mel_pts = _mel_to_hz(np.linspace(_hz_to_mel(f_min), _hz_to_mel(f_max), n_mels + 2))
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fft_freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (mel_pts[2:n_mels + 2] - mel_pts[:n_mels])
+    return weights * enorm[:, None]
+
+
+@lru_cache(maxsize=8)
+def dft_basis(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Windowed real-DFT bases (cos, -sin), each (n_fft, 1 + n_fft//2):
+    ``frames @ cos`` and ``frames @ sin`` are Re and Im of the one-sided DFT."""
+    window = padded_window(n_fft, win_length)
+    angles = 2.0 * np.pi * np.arange(n_fft)[:, None] * np.arange(1 + n_fft // 2)[None, :] / n_fft
+    return np.cos(angles) * window[:, None], -np.sin(angles) * window[:, None]
+
+
+@lru_cache(maxsize=8)
+def idft_basis(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Inverse one-sided DFT bases (re, im), each (1 + n_fft//2, n_fft), with
+    the window applied for overlap-add:
+    irfft(X)[n] = (1/N) Σ_k w_k (Re X_k cos(2πkn/N) − Im X_k sin(2πkn/N)),
+    w_0 = w_{N/2} = 1, w_k = 2 otherwise."""
+    window = padded_window(n_fft, win_length)
+    angles = 2.0 * np.pi * np.arange(1 + n_fft // 2)[:, None] * np.arange(n_fft)[None, :] / n_fft
+    w = np.full((1 + n_fft // 2, 1), 2.0)
+    w[0] = w[-1] = 1.0
+    return (w * np.cos(angles)) / n_fft * window[None, :], \
+        (-w * np.sin(angles)) / n_fft * window[None, :]

@@ -1,0 +1,116 @@
+"""Self-describing model dirs shared with the JAX package, and the weight bridge.
+
+A model dir is ``config.yaml`` (the constructor config, alphabet and step)
+plus ``model_weights.npz`` keyed by the JAX package's ``flatten_params``
+paths (``encoder/conv_0/sarn/mha/wq/kernel``, ...). Either package loads a
+dir the other wrote.
+
+Layouts, JAX (Keras) → PyTorch, by leaf:
+
+- Dense ``kernel`` (in, out) → ``weight`` (out, in); ``bias`` → ``bias``
+- Conv1D ``kernel`` (width, in, out) → ``weight`` (out, in, width)
+- LayerNorm ``gamma`` / ``beta`` → ``weight`` / ``bias``
+- Embedding ``table`` (vocab, dim) → ``weight`` (vocab, dim)
+- ``pos_encoding_scalar`` (0-d) → ``pos_encoding_scalar``
+
+Transposes are exact, so npz → PyTorch → npz round-trips bit for bit.
+"""
+from pathlib import Path
+from typing import Dict
+
+import numpy as np
+import torch
+import yaml
+
+
+def make_config(locals_: dict, kwargs: dict) -> dict:
+    """Constructor args are the schema, as in the JAX package."""
+    config = {}
+    for k, v in locals_.items():
+        if k in kwargs or k in ('self', '__class__', 'kwargs'):
+            continue
+        if isinstance(v, dict):
+            config.update(v)
+        else:
+            config[k] = v
+    config.update(kwargs)
+    return config
+
+
+def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX ``flatten_params`` dict → PyTorch state dict."""
+    state = {}
+    for path, value in flat.items():
+        *mod, leaf = path.split('/')
+        value = np.asarray(value)
+        if leaf == 'kernel' and value.ndim == 2:
+            leaf, value = 'weight', value.T
+        elif leaf == 'kernel' and value.ndim == 3:
+            leaf, value = 'weight', value.transpose(2, 1, 0)
+        elif leaf in ('gamma', 'table'):
+            leaf = 'weight'
+        elif leaf == 'beta':
+            leaf = 'bias'
+        elif leaf not in ('bias', 'pos_encoding_scalar'):
+            raise KeyError(f'unknown JAX parameter leaf {path!r}')
+        state['.'.join(mod + [leaf])] = torch.from_numpy(value.copy(order='C'))
+    return state
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """PyTorch state dict → JAX ``flatten_params`` dict (inverse of
+    ``params_from_jax``). A module is told apart by its ``weight``: 1-d is a
+    LayerNorm, 3-d a Conv1D, 2-d with a bias a Dense, 2-d alone an Embedding."""
+    weights = {k[:-len('.weight')]: v for k, v in state.items() if k.endswith('.weight')}
+    flat = {}
+    for key, value in state.items():
+        *mod, leaf = key.split('.')
+        prefix = '.'.join(mod)
+        value = value.detach().cpu().numpy()
+        w = weights.get(prefix)
+        if leaf == 'weight':
+            if value.ndim == 1:
+                leaf = 'gamma'
+            elif value.ndim == 3:
+                leaf, value = 'kernel', value.transpose(2, 1, 0)
+            elif f'{prefix}.bias' in state:
+                leaf, value = 'kernel', value.T
+            else:
+                leaf = 'table'
+        elif leaf == 'bias' and w is not None and w.ndim == 1:
+            leaf = 'beta'
+        flat['/'.join(mod + [leaf])] = value.copy(order='C')
+    return flat
+
+
+def save_model_dir(model, path) -> Path:
+    """Write ``config.yaml`` + ``model_weights.npz`` under ``path``."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    config = dict(model.config)
+    config['alphabet'] = ''.join(model.symbols)
+    config['step'] = int(model.step)
+    with open(path / 'config.yaml', 'w') as f:
+        yaml.safe_dump(config, f, allow_unicode=True)
+    np.savez(path / 'model_weights.npz', **params_to_jax(model.state_dict()))
+    return path
+
+
+def load_model_dir(cls, path, device):
+    """Rebuild a model of type ``cls`` on ``device`` from a model dir; every
+    weight in the npz must fill a parameter and every parameter be filled."""
+    path = Path(path)
+    with open(path / 'config.yaml') as f:
+        config = yaml.safe_load(f)
+    npz = path / 'model_weights.npz'
+    if not npz.exists():
+        raise FileNotFoundError(
+            f'no model_weights.npz under {path}: convert hdf5 checkpoints '
+            f'once with the JAX package (models/convert.py) and save as npz')
+    model = cls(**config)
+    with np.load(npz) as data:
+        state = params_from_jax({k: data[k] for k in data.files})
+    model.load_state_dict(state, strict=True)
+    model.to(device)
+    model.step = int(config.get('step', 0))
+    return model

@@ -1,0 +1,66 @@
+"""Batched text→wav synthesis (serving path), the counterpart of
+``transformertts_tpu/models/synthesis.py::synthesize_lines``.
+
+Sentences are tokenized on the host, sorted by length and cut into chunks
+of at most ``max_batch``. Each chunk is padded to bucketed shapes (tokens to
+a multiple of 32, batch to a power of two, frames to a multiple of 128) and
+runs on the model's device: the encoder, then the durations come to the host
+to size the frame budget, then one decode → mel inversion → Griffin-Lim
+pass. Each wav is trimmed on the host to its own predicted length.
+"""
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from transformertts_torch.models.forward_tts import FRAME_BUCKET, TOKEN_BUCKET
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _batch_bucket(b: int, max_batch: int) -> int:
+    """Round a chunk size up to a power of two, at most ``max_batch``."""
+    p = 1
+    while p < b:
+        p *= 2
+    return min(p, max_batch)
+
+
+@torch.inference_mode()
+def synthesize_lines(model, audio, lines: Sequence[str],
+                     speed_regulator: float = 1.0, n_iter: int = None,
+                     max_batch: int = 32) -> List[np.ndarray]:
+    """Synthesize many sentences on ``model.device``; returns float32 wavs
+    (peak-normalized to [-1, 1]) in input order. A line that tokenizes to
+    nothing gives an empty wav."""
+    n_iter = n_iter if n_iter is not None else audio.griffin_lim_iters
+    silence = audio.silence_level()
+    scalar = float(np.float32(1.0 / speed_regulator))
+    wavs: List[np.ndarray] = [None] * len(lines)
+    entries = []   # (input index, tokens)
+    for i, line in enumerate(lines):
+        tokens = np.asarray(model.encode_text(line), np.int64)
+        if tokens.size == 0:
+            wavs[i] = np.zeros((0,), np.float32)
+        else:
+            entries.append((i, tokens))
+    entries.sort(key=lambda e: len(e[1]))
+
+    for s in range(0, len(entries), max_batch):
+        chunk = entries[s:s + max_batch]
+        n_tok = _round_up(max(len(t) for _, t in chunk), TOKEN_BUCKET)
+        tok = np.zeros((_batch_bucket(len(chunk), max_batch), n_tok), np.int64)
+        for row, (_, t) in enumerate(chunk):
+            tok[row, :len(t)] = t
+        enc = model.encode(torch.as_tensor(tok, device=model.device))
+        use = model.scaled_durations(enc, scalar)
+        totals = np.round(use.cpu().numpy()).sum(axis=1).astype(int) + 1
+        frames = _round_up(int(totals[:len(chunk)].max()), FRAME_BUCKET)
+        dec = model.decode_features(enc['features'], enc['pitch'], use, frames)
+        mel = model.mask_mel_to_silence(dec, silence)
+        wav = model.peak_normalize(audio.mels_to_waveforms(mel, n_iter)).cpu().numpy()
+        for row, (orig_idx, _) in enumerate(chunk):
+            wavs[orig_idx] = wav[row, :(int(totals[row]) - 1) * audio.hop_length]
+    return wavs

@@ -1,0 +1,181 @@
+"""Encoder, decoder and predictor blocks, the counterparts of
+``transformertts_tpu/nn/blocks.py``.
+
+Submodules carry the JAX parameter-tree names (``sarn``, ``conv_0``,
+``ln``, ...), so a state-dict key is the JAX ``flatten_params`` path with
+``.`` for ``/`` (see ``models/persistence.py``). ``need_weights`` selects the
+attention path: eager with float32 weights returned, or the fused kernel
+with none (``nn/attention.py``).
+"""
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from transformertts_torch.nn import core
+from transformertts_torch.nn.attention import MultiHeadAttention
+from transformertts_torch.nn.posenc import positional_encoding
+
+
+def _keep(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, 1, 1, T) 1 = masked → (B, T, 1) 1 = kept, in the compute dtype
+    (a float32 mask would promote the bfloat16 path)."""
+    return (1.0 - mask[:, 0, 0, :])[:, :, None].to(dtype)
+
+
+class FFNResNorm(nn.Module):
+    """x → LN(x + W2(relu(W1 x)))."""
+
+    def __init__(self, model_dim: int, hidden: int):
+        super().__init__()
+        self.d1 = core.Dense(model_dim, hidden, activation='relu')
+        self.d2 = core.Dense(hidden, model_dim)
+        self.ln = core.LayerNorm(model_dim)
+
+    def forward(self, x):
+        return self.ln(self.d2(self.d1(x)) + x)
+
+
+class CNNResNorm(nn.Module):
+    """Residual conv stack: inner convs with activation, last conv linear,
+    LN(inputs + x)."""
+
+    def __init__(self, in_dim: int, filters: List[int], kernel_size: int,
+                 inner_activation: str):
+        super().__init__()
+        dims = [in_dim] + list(filters)
+        self.convs = []
+        for i in range(len(filters)):
+            act = inner_activation if i < len(filters) - 1 else None
+            conv = core.Conv1D(dims[i], dims[i + 1], kernel_size, activation=act)
+            self.add_module(f'conv_{i}', conv)
+            self.convs.append(conv)
+        self.ln = core.LayerNorm(filters[-1])
+
+    def forward(self, x):
+        y = x
+        for conv in self.convs:
+            y = conv(y)
+        return self.ln(x + y)
+
+
+class CNNDropout(nn.Module):
+    """Stat-predictor conv stack: each layer conv → act → LN."""
+
+    def __init__(self, in_dim: int, filters: List[int], kernel_size: int,
+                 inner_activation: str, last_activation: str):
+        super().__init__()
+        dims = [in_dim] + list(filters)
+        acts = [inner_activation] * (len(filters) - 1) + [last_activation]
+        self.layers = []
+        for i in range(len(filters)):
+            conv = core.Conv1D(dims[i], dims[i + 1], kernel_size, activation=acts[i])
+            ln = core.LayerNorm(filters[i])
+            self.add_module(f'conv_{i}', conv)
+            self.add_module(f'ln_{i}', ln)
+            self.layers.append((conv, ln))
+
+    def forward(self, x):
+        for conv, ln in self.layers:
+            x = ln(conv(x))
+        return x
+
+
+class StatPredictor(nn.Module):
+    """Duration/pitch predictor: mask → CNNDropout → Dense(1, act) → mask."""
+
+    def __init__(self, in_dim: int, conv_filters: List[int], kernel_size: int,
+                 conv_activation: str, dense_activation: str):
+        super().__init__()
+        self.conv_blocks = CNNDropout(in_dim, conv_filters, kernel_size,
+                                      conv_activation, conv_activation)
+        self.linear = core.Dense(conv_filters[-1], 1, activation=dense_activation)
+
+    def forward(self, x, mask):
+        """mask: (B, T, 1), 1 = real data."""
+        mask = mask.to(x.dtype)
+        return self.linear(self.conv_blocks(x * mask)) * mask
+
+
+class SelfAttentionResNorm(nn.Module):
+
+    def __init__(self, model_dim: int, num_heads: int):
+        super().__init__()
+        self.mha = MultiHeadAttention(model_dim, num_heads)
+        self.ln = core.LayerNorm(model_dim)
+
+    def forward(self, x, mask, need_weights: bool = True):
+        attn_out, weights = self.mha(x, x, x, mask, need_weights)
+        return self.ln(attn_out + x), weights
+
+
+class SelfAttentionDenseBlock(nn.Module):
+
+    def __init__(self, model_dim: int, num_heads: int, hidden: int):
+        super().__init__()
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
+        self.ffn = FFNResNorm(model_dim, hidden)
+
+    def forward(self, x, mask, need_weights: bool = True):
+        attn_out, weights = self.sarn(x, mask, need_weights)
+        keep = _keep(mask, attn_out.dtype)
+        return self.ffn(attn_out * keep) * keep, weights
+
+
+class SelfAttentionConvBlock(nn.Module):
+
+    def __init__(self, model_dim: int, num_heads: int, conv_filters: List[int],
+                 kernel_size: int, conv_activation: str):
+        super().__init__()
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
+        self.conv = CNNResNorm(model_dim, conv_filters, kernel_size, conv_activation)
+
+    def forward(self, x, mask, need_weights: bool = True):
+        attn_out, weights = self.sarn(x, mask, need_weights)
+        keep = _keep(mask, attn_out.dtype)
+        return self.conv(attn_out * keep) * keep, weights
+
+
+class SelfAttentionBlocks(nn.Module):
+    """Stack: LN → +scalar·posenc → dense blocks → conv blocks. (The
+    Aligner's reduction-factor striding of the posenc comes with its slice.)"""
+
+    def __init__(self, model_dim: int, feed_forward_dimension: Optional[int],
+                 num_heads: List[int], maximum_position_encoding: int,
+                 conv_filters: Optional[List[int]], dense_blocks: int,
+                 kernel_size: Optional[int],
+                 conv_activation: Optional[str], name: str = 'Encoder'):
+        super().__init__()
+        self.name = name
+        self.register_buffer(
+            'pos_encoding',
+            torch.from_numpy(positional_encoding(maximum_position_encoding, model_dim)),
+            persistent=False)
+        self.ln = core.LayerNorm(model_dim)
+        self.pos_encoding_scalar = nn.Parameter(torch.ones(()))
+        self.dense_layers, self.conv_layers = [], []
+        for i, h in enumerate(num_heads[:dense_blocks]):
+            block = SelfAttentionDenseBlock(model_dim, h, feed_forward_dimension)
+            self.add_module(f'dense_{i}', block)
+            self.dense_layers.append(block)
+        for i, h in enumerate(num_heads[dense_blocks:]):
+            block = SelfAttentionConvBlock(model_dim, h, conv_filters, kernel_size,
+                                           conv_activation)
+            self.add_module(f'conv_{i}', block)
+            self.conv_layers.append(block)
+
+    def forward(self, x, mask, need_weights: bool = True):
+        """Returns (y, {block name: weights}); the dict is empty when
+        ``need_weights`` is False."""
+        y = self.ln(x)
+        pe = self.pos_encoding[:, :x.shape[1]]
+        # keep the compute dtype: the float32 scalar would promote the stack
+        y = y + self.pos_encoding_scalar.to(y.dtype) * pe.to(y.dtype)
+        attention_weights = {}
+        for kind, layers in (('DenseBlock', self.dense_layers),
+                             ('ConvBlock', self.conv_layers)):
+            for i, block in enumerate(layers):
+                y, w = block(y, mask, need_weights)
+                if need_weights:
+                    attention_weights[f'{self.name}_{kind}{i + 1}_SelfAttention'] = w
+        return y, attention_weights

@@ -1,0 +1,126 @@
+"""NN primitives as ``nn.Module``s, the counterparts of ``transformertts_tpu/nn/core.py``.
+
+Parameters are stored in float32 and cast to the input's dtype at use, so a
+bfloat16 forward runs bfloat16 GEMMs and convolutions (float32 accumulation
+inside cuBLAS/cuDNN) while the weights stay exact. Layouts follow PyTorch
+(``Linear.weight`` is (out, in), ``Conv1d.weight`` is (out, in, width));
+``models/persistence.py`` maps them to and from the JAX package's Keras
+layouts. Initializers match the JAX package's Keras defaults (glorot-uniform
+kernels, zero biases, uniform(-0.05, 0.05) embeddings), drawn from an
+explicit ``torch.Generator``.
+
+This slice is inference only: dropout is the identity, so no module applies
+it (the model config keeps its rates).
+"""
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_ACTIVATIONS = {None: lambda x: x, 'linear': lambda x: x, 'relu': torch.relu}
+
+
+def _activation(name: Optional[str]):
+    if name not in _ACTIVATIONS:
+        raise ValueError(f'unknown activation: {name}')
+    return _ACTIVATIONS[name]
+
+
+def glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
+                    generator: torch.Generator) -> None:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-limit, limit, generator=generator)
+
+
+class Dense(nn.Module):
+    """y = act(x @ weightᵀ + bias) in x's dtype."""
+
+    def __init__(self, in_dim: int, out_dim: int, activation: Optional[str] = None):
+        super().__init__()
+        self.in_dim, self.out_dim = in_dim, out_dim
+        self.act = _activation(activation)
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        glorot_uniform_(self.weight, self.in_dim, self.out_dim, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return self.act(y)
+
+
+class Conv1D(nn.Module):
+    """SAME-padded time-wise convolution over (batch, time, channels).
+
+    SAME pads ``((k-1)//2, k//2)`` as ``lax`` does; both frameworks
+    cross-correlate, so the weights carry over without flipping.
+    """
+
+    def __init__(self, in_dim: int, filters: int, kernel_size: int,
+                 activation: Optional[str] = None):
+        super().__init__()
+        self.in_dim, self.filters, self.kernel_size = in_dim, filters, kernel_size
+        self.act = _activation(activation)
+        self.weight = nn.Parameter(torch.empty(filters, in_dim, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(filters))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        k = self.kernel_size
+        glorot_uniform_(self.weight, self.in_dim * k, self.filters * k, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel_size
+        xt = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
+        y = F.conv1d(xt, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return self.act(y.transpose(1, 2))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with float32 statistics, eps 1e-6."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+class Embedding(nn.Module):
+    """Token embedding table; row order is fixed by the tokenizer alphabet."""
+
+    def __init__(self, vocab_size: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(vocab_size, dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.uniform_(-0.05, 0.05, generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialize every primitive under ``module`` from ``generator``, in
+    module-registration order (deterministic for a given seed)."""
+    for m in module.modules():
+        if isinstance(m, (Dense, Conv1D, LayerNorm, Embedding)):
+            m.reset_parameters(generator)

@@ -1,0 +1,71 @@
+"""Build the port's CUDA sources into shared libraries and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
+``nvcc`` builds it in seconds. The build runs at first use, never at import,
+into ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
+keyed on a hash of the source and the flags: an edited source rebuilds, an
+unchanged one loads the library already built.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / 'torch_kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC')
+
+_loaded = {}
+
+
+def nvcc_path() -> str:
+    """nvcc on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    candidate = Path(home) / 'bin' / 'nvcc'
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError('nvcc not found: the CUDA kernels are built with the '
+                       'CUDA toolkit (PATH, CUDA_HOME or /usr/local/cuda)')
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f'{name}.cu'
+    digest = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the library for this source exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: concurrent builders never load
+    # a half-written library
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, '-o', tmp, str(CSRC / f'{name}.cu')],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {name}.cu:\n{proc.stderr}')
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<name>.cu`` once."""
+    if name not in _loaded:
+        _loaded[name] = ctypes.CDLL(str(build(name)))
+    return _loaded[name]

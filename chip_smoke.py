@@ -7,21 +7,38 @@ prints no result):
 
 1. device: a CUDA card is required; prints its name and power limit and
    switches TF32 off for the float32 comparisons;
-2. build: compiles the fused-attention kernel from transformertts_torch/csrc
-   with nvcc into build/ (listed in .gitignore);
-3. kernel vs plain: the kernel against ``attention_plain`` on the card, in
-   float32 and in bfloat16 (padded keys, a fully masked row, causal on and
-   off, head widths 24 and 192, the synthesis shapes), then both timed in
-   bfloat16 at the synthesis shapes;
-4. slice: the published LJSpeech configuration (d=384, 6+6 blocks, 2 heads,
-   bfloat16) with weights drawn from a seed, saved as a model dir and loaded
-   back; ``synthesize_lines`` over config/test_sentences.txt with the launch
-   count of the kernel; the bfloat16 kernel-path mel against a float32
+2. build: compiles the attention kernels from transformertts_torch/csrc
+   with nvcc into build/ (listed in .gitignore), one nvcc a source, in
+   parallel;
+3. kernel vs plain: the forward kernel (K1) against ``attention_plain`` on
+   the card, in float32 and in bfloat16 (padded keys, a fully masked row,
+   causal on and off, head widths 24 and 192, the synthesis shapes), then
+   both timed in bfloat16 at the synthesis shapes;
+4. training kernels vs plain: K2 (output and logsumexp), K3 (dQ) and K4
+   (dK, dV) against ``attention_fwd_lse_plain``/``attention_bwd_plain`` in
+   float32 and bfloat16, at dropout 0 and 0.1 with one (seed, offset), on
+   the same kinds of cases and the training shapes, then forward+backward
+   timed against the plain versions at the training shapes;
+5. serving slice: the published LJSpeech configuration (d=384, 6+6 blocks,
+   2 heads, bfloat16) with weights drawn from a seed, saved as a model dir
+   and loaded back; ``synthesize_lines`` over config/test_sentences.txt with
+   the launch count of K1; the bfloat16 kernel-path mel against a float32
    eager-attention mel under forced durations; the bench workload
    (B64 x 128 tokens -> 768 frames) in mel frames/s; the predict_tts CLI;
-5. the last two lines: the kernels' JSON record, then the contract line.
+6. training slice: config/training_config.yaml's published TTS settings
+   (bfloat16, dropout 0.1, Adam, the config's learning rate) on a synthetic
+   featurized data dir drawn from a seed: ``transformertts_torch.train_tts``
+   (its ``main``, the entry ``python -m`` runs) for 8 steps with validation
+   (whose loss must be finite) and a save at step 8, with the K2/K3/K4
+   launch counts, then again to step
+   10, resuming from 8; ``model_step_8`` loaded and synthesizing a line; a
+   timed step at B32 x 128 tokens x 512 frames with the launches a step;
+   30 steps on one batch, whose loss must fall; and a float32 model at
+   dropout 0 whose kernel-path gradients must match the eager path's;
+7. the last two lines: the kernels' JSON record, then the contract line.
 """
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -30,6 +47,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import yaml
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / 'build' / 'chip_smoke'
@@ -45,6 +63,12 @@ MEL_REL_MAE_BAR = 0.05  # bf16 vs f32 mel MAE over the f32 mel's std, forced dur
 DURATION_BIAS = 5.0
 ENCODER_SHAPE = (64, 2, 128, 128, 192)  # (B, H, Tq, Tk, D) of the slice
 DECODER_SHAPE = (64, 2, 768, 768, 192)
+TRAIN_ENCODER_SHAPE = (32, 2, 128, 128, 192)  # B32 x 128 tokens x 512 frames
+TRAIN_DECODER_SHAPE = (32, 2, 512, 512, 192)
+BF16_GRAD_TOL = dict(atol=0.12, rtol=0.12)  # the JAX flash backward's bfloat16 bar
+F32_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)   # ... and its float32 bar
+WIRING_REL_L2_BAR = 1e-3
+KERNELS = ('flash_attention_fwd', 'flash_attention_bwd')
 
 PUBLISHED = dict(
     encoder_model_dimension=384, decoder_model_dimension=384, dropout_rate=0.1,
@@ -68,6 +92,60 @@ def log(*args):
     print(*args, flush=True)
 
 
+def write_session(work: Path, tts_overrides: dict = None,
+                  data_overrides: dict = None) -> Path:
+    """A session YAML: config/training_config.yaml (the published TTS
+    settings) with its paths under ``work`` and the given overrides."""
+    with open(ROOT / 'config' / 'training_config.yaml') as f:
+        cfg = yaml.safe_load(f)
+    cfg['paths'] = {'wav_directory': str(work / 'wavs'),
+                    'metadata_path': str(work / 'metadata.csv'),
+                    'log_directory': str(work / 'logs'),
+                    'train_data_directory': str(work / 'ttsdata')}
+    cfg['training_data_settings'].update(data_overrides or {})
+    cfg['tts_settings'].update(tts_overrides or {})
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / 'session.yaml'
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def write_synthetic_data(cm, n_train: int, n_valid: int, frames=(400, 600),
+                         seed: int = SEED):
+    """Featurized samples in the layout TTSDataset reads, drawn from
+    ``seed``: phoneme strings from the tokenizer's alphabet, durations of
+    3-8 frames a token summing to a mel length in ``frames``, log-mels in
+    the MelGAN range and per-token pitch. ``cm`` is the session's
+    TrainingConfigManager."""
+    c = cm.config
+    tokenizer = cm.get_model('cpu').text_pipeline.tokenizer
+    # no space (it adds a breathing token), no separator, no upsampled '?!'
+    symbols = [s for s in tokenizer.alphabet if s not in ' |?!@/']
+    rng = np.random.default_rng(seed)
+    cm.create_remove_dirs(assume_yes=True)
+    lines = []
+    for i in range(n_train + n_valid):
+        target = rng.integers(frames[0], frames[1] + 1)
+        n_text = max(1, int(target) // 6)
+        while True:
+            text = ''.join(rng.choice(symbols, n_text))
+            durations = rng.integers(3, 9, len(tokenizer(text))).astype(np.float32)
+            if frames[0] <= durations.sum() <= frames[1]:
+                break
+            n_text += 1 if durations.sum() < frames[0] else -1
+        t = int(durations.sum())
+        mel = np.clip(rng.normal(-4.0, 1.5, (t, c['mel_channels'])), np.log(1e-5), 2.0)
+        name = f'synth_{i:04d}'
+        np.save(cm.mel_dir / f'{name}.npy', mel.astype(np.float32))
+        np.save(cm.duration_dir / f'{name}.npy', durations)
+        np.save(cm.pitch_per_char / f'{name}.npy',
+                rng.standard_normal(len(durations)).astype(np.float32))
+        lines.append(f'{name}|{text}')
+    cm.train_metadata_path.write_text('\n'.join(lines[:n_train]) + '\n', encoding='utf-8')
+    cm.valid_metadata_path.write_text('\n'.join(lines[n_train:]) + '\n', encoding='utf-8')
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available() '
@@ -86,9 +164,11 @@ def device_phase() -> str:
 def build_phase():
     from transformertts_torch.ops import build
     t0 = time.perf_counter()
-    path = build.build('flash_attention_fwd')
-    build.load('flash_attention_fwd')
-    log(f'build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s')
+    paths = build.build_all(KERNELS)
+    for name in KERNELS:
+        build.load(name)
+    log(f'build: {[str(p.relative_to(ROOT)) for p in paths]} in '
+        f'{time.perf_counter() - t0:.1f} s')
 
 
 def _qkv(shape, dtype, gen, pad_keys=True):
@@ -146,6 +226,83 @@ def kernel_phase() -> dict:
         record[name] = dict(shape=list(shape), max_abs_err=errors[shape, torch.bfloat16],
                             ms=ms, plain_ms=plain_ms)
     return record
+
+
+def _trainable_ops():
+    from transformertts_torch.ops import flash_attention as fa
+    return fa, (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+
+
+def trainable_kernel_phase() -> dict:
+    """K2, K3 and K4 against the plain versions in both dtypes, at dropout 0
+    and 0.1 with one (seed, offset), then forward+backward timed in bfloat16
+    against the plain versions at the training shapes."""
+    fa, _ = _trainable_ops()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
+    cases = [((2, 2, 37, 53, 24), False), ((2, 2, 41, 41, 24), True),
+             ((3, 2, 130, 70, 192), False), ((2, 2, 100, 100, 192), True),
+             (TRAIN_ENCODER_SHAPE, False), (TRAIN_DECODER_SHAPE, False)]
+    errors = {'K2': 0.0, 'K3': 0.0, 'K4': 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        grad_tol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
+        for shape, causal in cases:
+            for rate in (0.0, 0.1):
+                q, k, v, bias = _qkv(shape, dtype, gen)
+                dout = torch.randn(q.shape, device='cuda', generator=gen).to(dtype)
+                args = (causal, rate, 1234, 5678)
+                out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
+                dq = fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, *args)
+                dk, dv = fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args)
+                torch.cuda.synchronize()
+                ref_out, ref_lse = fa.attention_fwd_lse_plain(q, k, v, bias, *args)
+                ref = fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, *args)
+                checks = (('K2', out, ref_out, fwd_tol), ('K2', lse, ref_lse, F32_TOL),
+                          ('K3', dq, ref[0], grad_tol), ('K4', dk, ref[1], grad_tol),
+                          ('K4', dv, ref[2], grad_tol))
+                for name, mine, want, tol in checks:
+                    if not torch.isfinite(mine).all():
+                        raise AssertionError(f'{name} not finite at {shape} {dtype} {rate}')
+                    if not want.abs().max() > 0:
+                        raise AssertionError(f'{name}: the plain version is all zero')
+                    torch.testing.assert_close(mine.float(), want.float(), **tol)
+                    errors[name] = max(errors[name],
+                                       (mine.float() - want.float()).abs().max().item())
+                log(f'{dtype} {shape} causal={causal} dropout={rate}: max |kernel - plain| '
+                    f'out {(out.float() - ref_out.float()).abs().max().item():.3g} '
+                    f'dq {(dq.float() - ref[0].float()).abs().max().item():.3g} '
+                    f'dk {(dk.float() - ref[1].float()).abs().max().item():.3g} '
+                    f'dv {(dv.float() - ref[2].float()).abs().max().item():.3g} '
+                    f'(max |plain dq| {ref[0].float().abs().max().item():.3g})')
+                del q, k, v, dout, out, lse, dq, dk, dv, ref_out, ref_lse, ref
+    record = {}
+    for name, shape in (('encoder', TRAIN_ENCODER_SHAPE), ('decoder', TRAIN_DECODER_SHAPE)):
+        q, k, v, bias = _qkv(shape, torch.bfloat16, gen)
+        dout = torch.randn(q.shape, device='cuda', generator=gen).to(torch.bfloat16)
+        args = (False, 0.1, 1234, 5678)
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
+        t = dict(
+            K2=_time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, bias, *args)),
+            K3=_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout,
+                                                          *args)),
+            K4=_time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout,
+                                                           *args)),
+            plain_fwd=_time_ms(lambda: fa.attention_fwd_lse_plain(q, k, v, bias, *args)),
+            plain_bwd=_time_ms(lambda: fa.attention_bwd_plain(q, k, v, bias, out, lse, dout,
+                                                              *args)))
+        # the plain versions without dropout, whose int64 mask hash costs them
+        no_drop = (False, 0.0, 0, 0)
+        plain0 = (_time_ms(lambda: fa.attention_fwd_lse_plain(q, k, v, bias, *no_drop))
+                  + _time_ms(lambda: fa.attention_bwd_plain(q, k, v, bias, out, lse, dout,
+                                                            *no_drop)))
+        log(f'bf16 dropout 0.1 {name} {shape}: K2 {t["K2"]:.4f} ms vs plain forward '
+            f'{t["plain_fwd"]:.4f} ms; K3 {t["K3"]:.4f} ms + K4 {t["K4"]:.4f} ms vs plain '
+            f'backward {t["plain_bwd"]:.4f} ms; forward+backward '
+            f'{t["K2"] + t["K3"] + t["K4"]:.4f} ms vs {t["plain_fwd"] + t["plain_bwd"]:.4f} ms '
+            f'(plain at dropout 0: {plain0:.4f} ms)')
+        record[name] = dict(shape=list(shape), **t)
+    return {'errors': errors, 'times': record}
 
 
 def _batch_like_serving(model, lines):
@@ -255,11 +412,133 @@ def slice_phase() -> dict:
     return {'launches': launches}
 
 
+def _launch_counts(ops) -> list:
+    return [f.launches for f in ops]
+
+
+def training_phase() -> dict:
+    from transformertts_torch import train_tts
+    from transformertts_torch.audio import Audio
+    from transformertts_torch.models import ForwardTransformer
+    from transformertts_torch.models.synthesis import synthesize_lines
+    from transformertts_torch.profile_train import synthetic_batch
+    from transformertts_torch.training import checkpointing
+    from transformertts_torch.training.forward_trainer import ForwardTrainer, forward_loss
+    from transformertts_torch.utils.config import TrainingConfigManager
+    _, ops = _trainable_ops()
+    work = WORK / 'train'
+    if work.exists():
+        shutil.rmtree(work)
+    schedule = dict(validation_frequency=8, checkpoint_frequency=8,
+                    weights_save_frequency=8, weights_save_starting_step=8,
+                    prediction_start_step=10 ** 9)
+    cfg = write_session(work, {**schedule, 'max_steps': 8})
+    cm = TrainingConfigManager(cfg)
+    write_synthetic_data(cm, n_train=90, n_valid=6)
+    log(f'training data: 96 synthetic samples under {cm.data_dir.relative_to(ROOT)}')
+
+    # the training main path: 8 steps, validation and a save at step 8
+    for f in ops:
+        f.launches = 0
+    t0 = time.perf_counter()
+    validation = train_tts.main(['--config', str(cfg), '--yes', '--device', DEVICE])
+    torch.cuda.synchronize()
+    launches = _launch_counts(ops)
+    log(f'train_tts to step 8: {time.perf_counter() - t0:.1f} s, launches K2/K3/K4 '
+        f'{launches} (12 attention layers x 8 steps = 96 each)')
+    if launches != [96, 96, 96]:
+        raise AssertionError(f'8 training steps launched K2/K3/K4 {launches} times, not 96')
+    steps = [s for s, _ in checkpointing.list_checkpoints(cm.weights_dir)]
+    if steps != [8] or not (cm.base_dir / 'model_step_8').exists():
+        raise AssertionError(f'checkpoints {steps}, model dir missing or extra')
+    # train_tts prints a failed validation and trains on, as the JAX CLI does
+    if list(validation) != [8] or not np.isfinite(validation[8]):
+        raise AssertionError(f'validation at step 8 gave no finite loss: {validation}')
+    log(f'validation loss at step 8: {validation[8]:.4f}')
+
+    # resume: the same session to step 10 takes exactly the two missing steps
+    cfg = write_session(work, {**schedule, 'max_steps': 10})
+    counts = _launch_counts(ops)
+    train_tts.main(['--config', str(cfg), '--yes', '--device', DEVICE])
+    torch.cuda.synchronize()
+    resumed = [a - b for a, b in zip(_launch_counts(ops), counts)]
+    steps = [s for s, _ in checkpointing.list_checkpoints(cm.weights_dir)]
+    if resumed != [24, 24, 24] or steps != [8, 10]:
+        raise AssertionError(f'resume to 10 launched {resumed} (24 each for steps 9-10), '
+                             f'checkpoints {steps}')
+    log(f'resumed from step 8 to 10: launches {resumed}, checkpoints {steps}')
+
+    # serve the trained model dir
+    model = ForwardTransformer.load_model(cm.base_dir / 'model_step_8', device=DEVICE)
+    if model.step != 8:
+        raise AssertionError(f'model_step_8 holds step {model.step}')
+    wavs = synthesize_lines(model, Audio.from_config(model.config),
+                            ['Please, say something.'])
+    if len(wavs) != 1 or wavs[0].size == 0 or not np.isfinite(wavs[0]).all():
+        raise AssertionError('model_step_8 synthesized no finite wav')
+    log(f'model_step_8 synthesized {wavs[0].size} samples')
+
+    # a timed step at B32 x 128 tokens x 512 frames, then on to 30 steps on
+    # the same batch: the loss must fall
+    model = ForwardTransformer.from_config(cm.config, 'cpu').init_params(
+        torch.Generator().manual_seed(SEED)).to(DEVICE)
+    trainer = ForwardTrainer(model, cm.config['learning_rate_schedule'])
+    batch = synthetic_batch(model, seed=SEED)
+    losses, times = [], []
+    for i in range(30):
+        counts = _launch_counts(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(aux['loss'].item())
+        per_step = [a - b for a, b in zip(_launch_counts(ops), counts)]
+        if per_step != [12, 12, 12]:
+            raise AssertionError(f'a training step launched K2/K3/K4 {per_step} times')
+    ms = statistics.median(times[3:13]) * 1e3
+    frames_per_s = 32 * 512 / (ms / 1e3)
+    log(f'train step B32 x 128 tokens x 512 frames, bf16, dropout 0.1: median {ms:.2f} ms '
+        f'(steps 4-13: {[round(t * 1e3, 2) for t in times[3:13]]}), {frames_per_s:.1f} '
+        f'trained mel frames/s, K2/K3/K4 launches a step 12/12/12')
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f'30 steps on one batch: loss {losses}')
+    log(f'30 steps on one batch: mean loss of steps 1-5 {first:.4f}, of steps 26-30 {last:.4f}')
+    del trainer, model
+
+    # wiring: f32 at dropout 0, kernel-path grads against eager-path grads
+    model32 = ForwardTransformer.from_config(
+        {**cm.config, 'compute_dtype': 'float32', 'dropout_rate': 0.0,
+         'predictors_dropout': 0.0}, 'cpu').init_params(
+        torch.Generator().manual_seed(SEED + 2)).to(DEVICE)
+    small = ForwardTrainer(model32, [(0, 0.0)]).to_device(
+        synthetic_batch(model32, b=4, n_tok=64, n_frames=256, seed=SEED + 3))
+    grads = {}
+    for eager in (False, True):
+        loss, _ = forward_loss(model32, small, True, None, need_weights=eager)
+        grads[eager] = torch.autograd.grad(loss, list(model32.parameters()))
+    # a softmax is invariant to a shift of its keys: the wk biases have a zero
+    # gradient in exact arithmetic and both paths return rounding noise there,
+    # so each leaf's denominator is floored at 1e-4 of the largest leaf norm
+    floor = 1e-4 * max(g.norm().item() for g in grads[True])
+    rel = {name: ((gk - ge).norm() / max(ge.norm().item(), floor)).item()
+           for (name, _), gk, ge in zip(model32.named_parameters(), grads[False], grads[True])}
+    worst = max(rel, key=rel.get)
+    log(f'wiring, f32 dropout 0, B4 x 64 x 256: kernel vs eager grads, max per-leaf '
+        f'relative L2 {rel[worst]:.3g} ({worst}) over {len(rel)} leaves')
+    if not rel[worst] < WIRING_REL_L2_BAR:
+        raise AssertionError(f'kernel-path grads differ from eager: {rel[worst]} at {worst}')
+    return {'launches': launches, 'ms_per_step': ms, 'frames_per_s': frames_per_s}
+
+
 def main():
     card = device_phase()
     build_phase()
     times = kernel_phase()
+    trainable = trainable_kernel_phase()
     result = slice_phase()
+    train = training_phase()
     dec = times['decoder']
     kernels = [{
         'name': 'flash_attention_fwd', 'route': 'cuda',
@@ -271,6 +550,21 @@ def main():
         'encoder_ms': times['encoder']['ms'],
         'encoder_plain_ms': times['encoder']['plain_ms'],
     }]
+    t_dec, t_enc = trainable['times']['decoder'], trainable['times']['encoder']
+    for i, (name, label, source, line, plain) in enumerate((
+            ('flash_attention_fwd_lse', 'K2', 'flash_attention_fwd.cu', 151, 'plain_fwd'),
+            ('flash_attention_bwd_dq', 'K3', 'flash_attention_bwd.cu', 176, 'plain_bwd'),
+            ('flash_attention_bwd_dkv', 'K4', 'flash_attention_bwd.cu', 204, 'plain_bwd'))):
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': f'transformertts_torch/csrc/{source}',
+            'replaces': f'transformertts_tpu/ops/flash_attention.py:{line}',
+            'launches': train['launches'][i],
+            'max_abs_err': trainable['errors'][label],
+            'ms': t_dec[label], 'plain_ms': t_dec[plain], 'shape': t_dec['shape'],
+            'encoder_ms': t_enc[label], 'encoder_plain_ms': t_enc[plain],
+        })
+    log(f'training: {train["ms_per_step"]:.2f} ms/step, {train["frames_per_s"]:.1f} trained '
+        f'mel frames/s at B32 x 512 frames')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,0 +1,259 @@
+"""The trainable fused attention of the port: the logsumexp forward (K2) and
+the backward (K3 dQ, K4 dK/dV), plain versions against JAX and autograd, and
+the CUDA kernels against the plain versions.
+
+Bars: float32 grads against the JAX ``flash_attention_trainable`` (Pallas in
+interpret mode, through ``jax.grad``) at the JAX kernel tests' own float32
+bar, atol 5e-5 / rtol 1e-3; bfloat16 at their bfloat16 bar, 0.12. The JAX
+kernel includes its 128-padding keys in a fully masked row (the port
+excludes keys >= Tk), so parity inputs keep at least one valid key a row;
+fully masked rows are tested on their own. Dropout has no JAX counterpart
+that matches bit for bit (the TPU draws its own bits): with dropout the
+kernels are held against the plain versions fed the same mask.
+
+Kernel tests carry the ``cuda`` marker and skip without a card; JAX is
+imported inside the parity tests, so on a machine with a card and no JAX this
+file runs as ``python -m pytest --noconftest -m cuda
+tests/test_torch_flash_attention_bwd.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from transformertts_torch.ops.flash_attention import (
+    NEG_INF, attention_bwd_plain, attention_fwd_lse_plain, attention_plain,
+    dropout_keep_mask, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_fwd_lse, flash_attention_trainable)
+
+torch.set_num_threads(1)
+
+F32_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)
+F32_FWD_TOL = dict(atol=2e-5, rtol=1e-4)
+BF16_GRAD_TOL = dict(atol=0.12, rtol=0.12)
+
+# (b, h, tq, tk, d, causal)
+CASES = {
+    'padded-keys': (2, 2, 37, 53, 24, False),
+    'causal': (2, 2, 41, 41, 24, True),
+    'tq-gt-tk': (1, 3, 70, 20, 32, False),
+    'published-head-width': (2, 2, 33, 33, 192, False),
+}
+
+
+def _inputs(b, h, tq, tk, d, seed=0, masked_row=False):
+    """q, k, v, bias, dout as numpy float32; sample 0 pads keys 3/4 on, and
+    with ``masked_row`` the last sample masks every key."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32) for t in (tq, tk, tk))
+    dout = rng.standard_normal((b, h, tq, d)).astype(np.float32)
+    bias = np.zeros((b, tk), np.float32)
+    bias[0, tk * 3 // 4:] = NEG_INF
+    if masked_row:
+        bias[-1] = NEG_INF
+    return q, k, v, bias, dout
+
+
+def _torch(*arrays, device='cpu', dtype=torch.float32):
+    return [torch.from_numpy(a).to(device=device, dtype=dtype) for a in arrays]
+
+
+def _plain_grads(q, k, v, bias, dout, causal, rate=0.0, seed=0, offset=0):
+    out, lse = attention_fwd_lse_plain(q, k, v, bias, causal, rate, seed, offset)
+    return out, lse, attention_bwd_plain(q, k, v, bias, out, lse, dout, causal, rate,
+                                         seed, offset)
+
+
+def _jax_grads(q, k, v, bias, dout, causal, dtype='float32'):
+    import jax
+    import jax.numpy as jnp
+    from transformertts_tpu.ops.flash_attention import flash_attention_trainable as jfa
+
+    def loss(q_, k_, v_):
+        out = jfa(q_, k_, v_, jnp.asarray(bias), causal=causal, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(dout))
+
+    args = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
+    return [np.asarray(g, np.float32) for g in jax.grad(loss, argnums=(0, 1, 2))(*args)]
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_backward_matches_jax_flash_grads(case):
+    b, h, tq, tk, d, causal = CASES[case]
+    arrays = _inputs(b, h, tq, tk, d)
+    _, _, grads = _plain_grads(*_torch(*arrays), causal)
+    for mine, ref in zip(grads, _jax_grads(*arrays, causal)):
+        np.testing.assert_allclose(mine.numpy(), ref, **F32_GRAD_TOL)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_plain_forward_matches_jax_out_and_lse(causal):
+    import jax.numpy as jnp
+    from transformertts_tpu.ops.flash_attention import _flash_fwd_res
+    b, h, tq, tk, d = 2, 2, 41, 41, 24
+    q, k, v, bias, _ = _inputs(b, h, tq, tk, d, seed=1)
+    out, lse = attention_fwd_lse_plain(*_torch(q, k, v, bias), causal)
+    j_out, j_lse = _flash_fwd_res(*(jnp.asarray(a) for a in (q, k, v, bias)), causal, True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **F32_FWD_TOL)
+    assert lse.shape == (b, h, tq, 2)
+    np.testing.assert_allclose(lse.sum(dim=-1).numpy().reshape(b * h, tq),
+                               np.asarray(j_lse)[:, 0, :tq], **F32_FWD_TOL)
+
+
+def test_plain_backward_bfloat16_matches_jax():
+    arrays = _inputs(2, 2, 37, 53, 24, seed=8)
+    q, k, v, bias, dout = _torch(*arrays)
+    _, _, grads = _plain_grads(q.bfloat16(), k.bfloat16(), v.bfloat16(), bias,
+                               dout.bfloat16(), False)
+    for mine, ref in zip(grads, _jax_grads(*arrays, False, dtype='bfloat16')):
+        assert mine.dtype == torch.bfloat16
+        np.testing.assert_allclose(mine.float().numpy(), ref, **BF16_GRAD_TOL)
+
+
+@pytest.mark.parametrize('masked_row', [False, True])
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_backward_matches_autograd_of_attention_plain(case, masked_row):
+    b, h, tq, tk, d, causal = CASES[case]
+    q, k, v, bias, dout = _torch(*_inputs(b, h, tq, tk, d, seed=2, masked_row=masked_row))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = attention_plain(*leaves, bias, causal)
+    auto = torch.autograd.grad(out, leaves, dout)
+    _, _, grads = _plain_grads(q, k, v, bias, dout, causal)
+    for mine, ref in zip(grads, auto):
+        torch.testing.assert_close(mine, ref, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('causal', [False, True])
+def test_trainable_passes_gradcheck_in_float64(rate, causal):
+    q, k, v, bias, _ = _torch(*_inputs(1, 2, 6, 7, 8, seed=3), dtype=torch.float64)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+
+    def fn(q_, k_, v_):
+        # a fresh generator of one seed: every evaluation draws the same mask
+        return flash_attention_trainable(q_, k_, v_, bias, causal, rate,
+                                         torch.Generator().manual_seed(11))
+
+    assert torch.autograd.gradcheck(fn, leaves, eps=1e-6, atol=1e-6, rtol=1e-4)
+
+
+def test_dropout_keep_mask_fraction_and_determinism():
+    mask = dropout_keep_mask(7, 3, 4, 2, 250, 500, 0.1)   # 10^6 weights
+    assert mask.shape == (4, 2, 250, 500) and mask.dtype == torch.bool
+    assert abs(mask.float().mean().item() - 0.9) < 0.01
+    assert torch.equal(mask, dropout_keep_mask(7, 3, 4, 2, 250, 500, 0.1))
+    other = dropout_keep_mask(7, 4, 4, 2, 250, 500, 0.1)
+    assert 0.1 < (mask != other).float().mean().item() < 0.3   # independent draws
+    assert dropout_keep_mask(7, 3, 1, 1, 8, 8, 0.0).all()
+
+
+def test_dropout_is_inverted_dropout_on_the_weights():
+    q, k, v, bias, _ = _torch(*_inputs(2, 2, 9, 11, 8, seed=4))
+    out, _ = attention_fwd_lse_plain(q, k, v, bias, False, 0.25, 5, 6)
+    weights = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / np.sqrt(8)
+                            + bias[:, None, None, :], dim=-1)
+    keep = dropout_keep_mask(5, 6, 2, 2, 9, 11, 0.25)
+    torch.testing.assert_close(out, torch.matmul(weights * keep / 0.75, v),
+                               atol=1e-6, rtol=1e-5)
+
+
+def test_masked_keys_get_zero_dk_dv_and_fully_masked_rows_are_finite():
+    b, h, tq, tk, d = 3, 2, 20, 24, 16
+    q, k, v, bias, dout = _torch(*_inputs(b, h, tq, tk, d, seed=5, masked_row=True))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention_trainable(*leaves, bias)
+    dq, dk, dv = torch.autograd.grad(out, leaves, dout)
+    for g in (out, dq, dk, dv):
+        assert torch.isfinite(g).all()
+    # sample 0 masks keys 18: on; its other keys carry gradient
+    assert dk[0, :, tk * 3 // 4:].abs().max() == 0 and dv[0, :, tk * 3 // 4:].abs().max() == 0
+    assert dv[0, :, :tk * 3 // 4].abs().max() > 0
+    # the fully masked sample is the mean of v, and its gradients under a
+    # nonzero cotangent are those of that mean: dV = Σ_rows dO / Tk
+    torch.testing.assert_close(out[-1], v[-1].mean(dim=1, keepdim=True).expand(h, tq, d))
+    torch.testing.assert_close(dv[-1], dout[-1].sum(dim=1, keepdim=True).expand(h, tk, d) / tk)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(attention_plain(*plain, bias), plain, dout)
+    for mine, ref in zip((dq, dk, dv), auto):
+        torch.testing.assert_close(mine[-1], ref[-1], atol=2e-5, rtol=1e-4)
+    # padded rows downstream get no cotangent, and then neither do its inputs
+    dout[-1] = 0
+    dq, dk, dv = torch.autograd.grad(flash_attention_trainable(*leaves, bias), leaves, dout)
+    assert dq[-1].abs().max() == 0 and dk[-1].abs().max() == 0 and dv[-1].abs().max() == 0
+
+
+def test_cpu_tensors_take_the_plain_versions_without_launching():
+    q, k, v, bias, dout = _torch(*_inputs(2, 2, 9, 11, 8))
+    before = [f.launches for f in (flash_attention_fwd_lse, flash_attention_bwd_dq,
+                                   flash_attention_bwd_dkv)]
+    out, lse = flash_attention_fwd_lse(q, k, v, bias, True, 0.1, 1, 2)
+    dq = flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, True, 0.1, 1, 2)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, True, 0.1, 1, 2)
+    assert before == [f.launches for f in (flash_attention_fwd_lse, flash_attention_bwd_dq,
+                                           flash_attention_bwd_dkv)]
+    ref = attention_bwd_plain(q, k, v, bias, out, lse, dout, True, 0.1, 1, 2)
+    for mine, r in zip((dq, dk, dv), ref):
+        torch.testing.assert_close(mine, r, atol=0, rtol=0)
+
+
+def test_dropout_needs_a_generator_and_a_rate_below_one():
+    q, k, v, bias, _ = _torch(*_inputs(1, 1, 4, 4, 8))
+    with pytest.raises(ValueError, match='generator'):
+        flash_attention_trainable(q, k, v, bias, dropout_rate=0.1)
+    with pytest.raises(ValueError, match='rate'):
+        attention_fwd_lse_plain(q, k, v, bias, dropout_rate=1.0)
+
+
+# ---------------------------------------------------------------------------
+# on the card: K2, K3 and K4 against the plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('the CUDA kernels run only on a card')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_kernels_match_plain_on_card(cuda, case, dtype, rate):
+    b, h, tq, tk, d, causal = CASES[case]
+    dt = getattr(torch, dtype)
+    q, k, v, bias, dout = _torch(*_inputs(b, h, tq, tk, d, masked_row=True), device=cuda)
+    q, k, v, dout = (x.to(dt) for x in (q, k, v, dout))
+    args = (causal, rate, 123, 456)
+    counts = [f.launches for f in (flash_attention_fwd_lse, flash_attention_bwd_dq,
+                                   flash_attention_bwd_dkv)]
+    out, lse = flash_attention_fwd_lse(q, k, v, bias, *args)
+    dq = flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, *args)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash_attention_fwd_lse, flash_attention_bwd_dq,
+                                 flash_attention_bwd_dkv)] == [c + 1 for c in counts]
+    ref_out, ref_lse = attention_fwd_lse_plain(q, k, v, bias, *args)
+    fwd_tol = F32_FWD_TOL if dt == torch.float32 else dict(atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(out.float(), ref_out.float(), **fwd_tol)
+    torch.testing.assert_close(lse, ref_lse, **F32_FWD_TOL)
+    # the backward holds against the plain backward at the kernel's own lse
+    ref = attention_bwd_plain(q, k, v, bias, out, lse, dout, *args)
+    grad_tol = F32_GRAD_TOL if dt == torch.float32 else BF16_GRAD_TOL
+    for mine, r in zip((dq, dk, dv), ref):
+        assert mine.dtype == dt and torch.isfinite(mine).all()
+        torch.testing.assert_close(mine.float(), r.float(), **grad_tol)
+
+
+@pytest.mark.cuda
+def test_trainable_on_card_launches_k2_k3_k4(cuda):
+    q, k, v, bias, dout = _torch(*_inputs(2, 2, 37, 53, 24), device=cuda)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counts = [f.launches for f in (flash_attention_fwd_lse, flash_attention_bwd_dq,
+                                   flash_attention_bwd_dkv)]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    out = flash_attention_trainable(*leaves, bias, dropout_rate=0.1, generator=gen)
+    torch.autograd.grad(out, leaves, dout)
+    assert [f.launches for f in (flash_attention_fwd_lse, flash_attention_bwd_dq,
+                                 flash_attention_bwd_dkv)] == [c + 1 for c in counts]

@@ -78,8 +78,43 @@ def test_griffin_lim_batch_rows_are_independent(magnitudes):
 
 
 def test_griffin_lim_refuses_hops_that_do_not_tile_n_fft():
-    with pytest.raises(ValueError, match='multiple of hop_length'):
-        tg.griffin_lim(torch.ones(1, 10, 257), 2, 512, 200, 512)
+    """It no longer refuses them: a hop that does not tile n_fft takes the
+    gather form, as in the JAX package, and gives (B, hop·(frames − 1))."""
+    wav = tg.griffin_lim(torch.ones(1, 10, 257), 2, 512, 200, 512)
+    assert wav.shape == (1, 200 * 9) and torch.isfinite(wav).all()
+
+
+@pytest.mark.parametrize('n_iter', [0, 2, 32])
+def test_griffin_lim_gather_path_matches_jax(magnitudes, n_iter):
+    """Hop 300 with n_fft 1024: the gather form (JAX
+    ``_griffin_lim_general``), at this file's bars."""
+    _, S = magnitudes
+    hop = 300
+    wav = tg.griffin_lim(torch.from_numpy(S), n_iter, N_FFT, hop, WIN).numpy()
+    ref = np.stack([np.asarray(jg.griffin_lim(jnp.asarray(s), n_iter, N_FFT, hop, WIN))
+                    for s in S])
+    assert wav.shape == ref.shape == (2, hop * (S.shape[1] - 1))
+    if n_iter <= 2:
+        np.testing.assert_allclose(wav, ref, rtol=0, atol=2e-4 * np.abs(ref).max())
+        return
+    for row in range(2):
+        rebuilt = [np.abs(jspectral.stft_np(w, N_FFT, hop, WIN))[:S.shape[1]]
+                   for w in (wav[row], ref[row])]
+        sc_port, sc_jax = (np.linalg.norm(S[row] - r) / np.linalg.norm(S[row])
+                           for r in rebuilt)
+        assert abs(sc_port - sc_jax) < 0.02 * sc_jax, (sc_port, sc_jax)
+
+
+def test_stft_istft_match_jax():
+    from transformertts_torch.audio import spectral as tspectral
+    y = np.random.default_rng(3).standard_normal((2, 6000)).astype(np.float32)
+    re, im = tspectral.stft(torch.from_numpy(y), N_FFT, 300, WIN)
+    j = [jspectral.stft(jnp.asarray(row), N_FFT, 300, WIN) for row in y]
+    for mine, ref in ((re, [r for r, _ in j]), (im, [i for _, i in j])):
+        np.testing.assert_allclose(mine.numpy(), np.stack(ref), rtol=0, atol=2e-4)
+    wav = tspectral.istft(re, im, N_FFT, 300, WIN).numpy()
+    ref = np.stack([np.asarray(jspectral.istft(r, i, N_FFT, 300, WIN)) for r, i in j])
+    np.testing.assert_allclose(wav, ref, rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize('normalizer', ['MelGAN', 'WaveRNN'])

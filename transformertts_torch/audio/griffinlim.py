@@ -4,10 +4,11 @@
 - ``mel_to_linear``: amplitude mel → linear magnitude by the pseudo-inverse
   of the mel filterbank, refined by multiplicative NNLS updates.
 - ``griffin_lim``: phase recovery by ISTFT→STFT round trips with momentum
-  0.99 and zero-phase init, batched. It runs in the padded signal domain:
-  the ISTFT lays frames down with n_fft/hop hop-wide strip adds and the STFT
-  re-frames with slices, so no gather appears in the loop. It therefore
-  needs ``n_fft % hop == 0``.
+  0.99 and zero-phase init, batched. Where the hop tiles n_fft it runs in
+  the padded signal domain: the ISTFT lays frames down with n_fft/hop
+  hop-wide strip adds and the STFT re-frames with slices, so no gather
+  appears in the loop. Other hops take the gather form, a centered
+  ``spectral.istft``/``spectral.stft`` round trip each iteration.
 
 All products are float32 GEMMs on the tensors' device.
 """
@@ -61,11 +62,9 @@ def _wsq_envelope(n_fft: int, hop_length: int, win_length: int,
 def griffin_lim(S: torch.Tensor, n_iter: int, n_fft: int, hop_length: int,
                 win_length: int, momentum: float = 0.99) -> torch.Tensor:
     """Magnitude STFT S (B, n_frames, n_bins) → waveforms (B, hop·(n_frames−1))."""
-    if n_fft % hop_length != 0:
-        raise ValueError(f'griffin_lim needs n_fft ({n_fft}) to be a multiple of '
-                         f'hop_length ({hop_length}); the gather form for other '
-                         f'hops is not ported')
     S = S.float()
+    if n_fft % hop_length != 0:
+        return _griffin_lim_general(S, n_iter, n_fft, hop_length, win_length, momentum)
     b, n_frames, _ = S.shape
     k_strips = n_fft // hop_length
     span = n_frames * hop_length
@@ -100,3 +99,20 @@ def griffin_lim(S: torch.Tensor, n_iter: int, n_fft: int, hop_length: int,
         prev_re, prev_im = new_re, new_im
     y = istft_padded(S * ang_re, S * ang_im)
     return y[:, n_fft // 2:out_len - n_fft // 2]
+
+
+def _griffin_lim_general(S: torch.Tensor, n_iter: int, n_fft: int, hop_length: int,
+                         win_length: int, momentum: float) -> torch.Tensor:
+    """The gather form for hops that do not tile n_fft: each iteration is a
+    centered ISTFT and a reflect-padded STFT of the signal."""
+    m = momentum / (1.0 + momentum)
+    ang_re, ang_im = torch.ones_like(S), torch.zeros_like(S)
+    prev_re, prev_im = torch.zeros_like(S), torch.zeros_like(S)
+    for _ in range(n_iter):
+        wav = spectral.istft(S * ang_re, S * ang_im, n_fft, hop_length, win_length)
+        new_re, new_im = spectral.stft(wav, n_fft, hop_length, win_length)
+        upd_re, upd_im = new_re - m * prev_re, new_im - m * prev_im
+        mag = torch.sqrt(upd_re * upd_re + upd_im * upd_im) + 1e-16
+        ang_re, ang_im = upd_re / mag, upd_im / mag
+        prev_re, prev_im = new_re, new_im
+    return spectral.istft(S * ang_re, S * ang_im, n_fft, hop_length, win_length)

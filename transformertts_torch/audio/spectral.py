@@ -1,11 +1,15 @@
-"""Spectral bases (numpy, host precompute), the counterparts of the bases in
-``transformertts_tpu/audio/spectral.py``: periodic Hann window, Slaney mel
-filterbank (librosa ``htk=False, norm='slaney'``) and the windowed real-DFT
-and inverse-DFT bases that turn the STFT and its inverse into GEMMs."""
+"""Spectral bases (numpy, host precompute) and the GEMM-form STFT and ISTFT,
+the counterparts of ``transformertts_tpu/audio/spectral.py``: periodic Hann
+window, Slaney mel filterbank (librosa ``htk=False, norm='slaney'``), the
+windowed real-DFT and inverse-DFT bases that turn the STFT and its inverse
+into GEMMs, and ``stft``/``istft`` over batched torch tensors (reflect
+centering, squared-window-normalized overlap-add), as librosa computes them."""
 from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 _F_SP = 200.0 / 3            # Slaney: linear below 1 kHz ...
 _MIN_LOG_HZ = 1000.0
@@ -75,3 +79,38 @@ def idft_basis(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
     w[0] = w[-1] = 1.0
     return (w * np.cos(angles)) / n_fft * window[None, :], \
         (-w * np.sin(angles)) / n_fft * window[None, :]
+
+
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Waveforms (B, T) → Re and Im of the centered STFT, each
+    (B, 1 + T // hop, 1 + n_fft//2): reflect-padded by n_fft//2, framed,
+    and two GEMMs against the windowed DFT bases."""
+    like = dict(dtype=y.dtype, device=y.device)
+    pad = n_fft // 2
+    frames = F.pad(y[:, None, :], (pad, pad), mode='reflect')[:, 0].unfold(-1, n_fft, hop_length)
+    cos_b, sin_b = (torch.as_tensor(b, **like) for b in dft_basis(n_fft, win_length))
+    return frames @ cos_b, frames @ sin_b
+
+
+def _overlap_add_index(n_frames: int, n_fft: int, hop_length: int) -> np.ndarray:
+    return (np.arange(n_fft)[None, :] + hop_length * np.arange(n_frames)[:, None]).reshape(-1)
+
+
+def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
+          win_length: int) -> torch.Tensor:
+    """Re, Im (B, n_frames, 1 + n_fft//2) → centered waveforms
+    (B, hop·(n_frames − 1)): inverse-DFT GEMMs, windowed overlap-add at any
+    hop, divided by the squared-window envelope."""
+    b, n_frames, _ = re.shape
+    like = dict(dtype=re.dtype, device=re.device)
+    re_b, im_b = (torch.as_tensor(x, **like) for x in idft_basis(n_fft, win_length))
+    frames = re @ re_b + im @ im_b                              # (B, F, n_fft)
+    out_len = n_fft + hop_length * (n_frames - 1)
+    idx = _overlap_add_index(n_frames, n_fft, hop_length)
+    wsq = np.zeros(out_len)
+    np.add.at(wsq, idx, np.tile(padded_window(n_fft, win_length) ** 2, n_frames))
+    y = torch.zeros(b, out_len, **like).index_add_(
+        1, torch.as_tensor(idx, device=re.device), frames.reshape(b, -1))
+    y = y / torch.as_tensor(np.maximum(wsq, 1e-10), **like)
+    return y[:, n_fft // 2:out_len - n_fft // 2]

@@ -1,15 +1,30 @@
 // Fused attention forward for Hopper (sm_90a), plain C interface for ctypes.
 //
-// Replaces the Pallas TPU kernel transformertts_tpu/ops/flash_attention.py
-// ::_attn_kernel (called through flash_attention -> _flash_attention):
+// Two entries share these kernels through the TRAIN template flag:
+// - flash_attention_fwd (K1) replaces the Pallas TPU kernel
+//   transformertts_tpu/ops/flash_attention.py::_attn_kernel (called through
+//   flash_attention -> _flash_attention):
 //
 //     out = softmax(q k^T / sqrt(D) + bias [+ causal look-ahead]) v
+//
+// - flash_attention_fwd_lse (K2) replaces ::_attn_fwd_kernel (called through
+//   flash_attention_trainable -> _flash_fwd_res): the same output plus the
+//   per-row logsumexp m + log(sum exp(x - m)), stored as the pair (m, log l)
+//   that the backward kernels (flash_attention_bwd.cu) recompute the weights
+//   from, and inverted dropout on the weights (the JAX training path's
+//   attention-weight dropout, which the TPU kernel lacks): P.V takes
+//   P * keep / (1 - rate) with keep from the counter-based hash of
+//   dropout_hash.cuh, while the row sum and lse stay those of the undropped
+//   weights. The pair is not summed: a fully masked row has m near -1e9,
+//   where a float32 sum would round log l away and the backward would weigh
+//   each key 1 instead of 1/Tk.
 //
 // with the softmax in float32, the output in q's dtype, and the (Tq, Tk)
 // weights never written to device memory. bias is the (B, Tk) additive key
 // mask (0 or -1e9); causal sets logits of keys after the query to exactly
 // -1e9, as the TPU kernel does. Keys at or beyond Tk take no part in the
-// softmax, so a row whose keys are all masked comes out as the mean of v.
+// softmax, so a row whose keys are all masked comes out as the mean of v
+// (its logits all round onto -1e9).
 //
 // What bounds it on this card, and the design:
 // - The TPU kernel keeps one (batch, head)'s whole K/V resident in VMEM. On
@@ -36,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -81,13 +98,15 @@ size_t mma_smem_bytes(int d) {
 //   A regs: (row g, k 2t..2t+1), (row g+8, k 2t..), (row g, k 2t+8..), (row g+8, k 2t+8..)
 //   B regs: (k 2t..2t+1, col g), (k 2t+8..2t+9, col g)
 //   C:      (row g, col 2t..2t+1), (row g+8, col 2t..2t+1)
-template <int DMAX>
+template <int DMAX, bool TRAIN>
 __global__ void __launch_bounds__(MMA_THREADS)
 attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                    int H, int Tq, int Tk, int D, int causal, float scale) {
+                    float* __restrict__ lse, int H, int Tq, int Tk, int D,
+                    int causal, float scale, uint32_t key, uint32_t thr,
+                    float keep_scale) {
     constexpr int NT = DMAX / 8;           // output n-tiles per warp
     const int DP = (D + 15) / 16 * 16;     // head width padded to the mma depth
     const int QS = DP + 8;                 // row stride of the Q and K tiles
@@ -124,6 +143,13 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0 + 8
     const __nv_bfloat16* qw = qs + (warp * 16 + g) * QS + 2 * t;
+    const bool drop = TRAIN && thr != 0u;
+    uint32_t hr[2] = {0u, 0u};
+    if (drop) {
+        uint32_t hb = dropout_bh_hash(key, bh);
+        hr[0] = dropout_row_hash(hb, row0);
+        hr[1] = dropout_row_hash(hb, row0 + 8);
+    }
 
     for (int k0 = 0; k0 < Tk; k0 += MK) {
         __syncthreads();   // the previous tile's K/V reads are done
@@ -192,6 +218,9 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
             for (int e = 0; e < 4; ++e) {
                 float p = expf(s[n][e] - m[e >> 1]);
                 l[e >> 1] += p;   // this lane's part of the row sum
+                if (drop)
+                    p = dropout_keep(hr[e >> 1], k0 + n * 8 + 2 * t + (e & 1), thr)
+                        ? p * keep_scale : 0.f;
                 s[n][e] = p;
             }
         }
@@ -229,6 +258,9 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int h = 0; h < 2; ++h) {
         int row = row0 + h * 8;
         if (row >= Tq) continue;
+        if (TRAIN && t == 0)
+            reinterpret_cast<float2*>(lse)[(long long)bh * Tq + row] =
+                make_float2(m[h], logf(l[h]));
         float inv = 1.f / l[h];
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
@@ -258,12 +290,13 @@ size_t simt_smem_bytes(int d) {
             + (size_t)BK * PT_STRIDE + BK) * sizeof(float);
 }
 
-template <int DMAX>
+template <int DMAX, bool TRAIN>
 __global__ void __launch_bounds__(SIMT_THREADS)
 attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
-                     float* __restrict__ out, int H, int Tq, int Tk, int D,
-                     int causal, float scale) {
+                     float* __restrict__ out, float* __restrict__ lse, int H,
+                     int Tq, int Tk, int D, int causal, float scale, uint32_t key,
+                     uint32_t thr, float keep_scale) {
     constexpr int NC = DMAX / 16;   // output columns per thread
     extern __shared__ float smem[];
     float* qt = smem;                         // [D][QT_STRIDE]
@@ -289,9 +322,13 @@ attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
         qt[d * QT_STRIDE + r] = (q0 + r < Tq) ? qb[(long long)(q0 + r) * D + d] : 0.f;
     }
 
+    const bool drop = TRAIN && thr != 0u;
+    const uint32_t hb = drop ? dropout_bh_hash(key, bh) : 0u;
     float m[4], l[4], acc[4][NC];
+    uint32_t hr[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+        hr[i] = drop ? dropout_row_hash(hb, q0 + ty + 16 * i) : 0u;
         m[i] = -INFINITY;
         l[i] = 0.f;
 #pragma unroll
@@ -350,6 +387,8 @@ attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
             for (int j = 0; j < 2; ++j) {
                 float p = expf(s[i][j] - m_new);
                 tsum += p;
+                if (drop)
+                    p = dropout_keep(hr[i], k0 + tx + 16 * j, thr) ? p * keep_scale : 0.f;
                 pt[(tx + 16 * j) * PT_STRIDE + ty + 16 * i] = p;
             }
 #pragma unroll
@@ -384,6 +423,9 @@ attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
         int row = q0 + ty + 16 * i;
         if (row >= Tq) continue;
+        if (TRAIN && tx == 0)
+            reinterpret_cast<float2*>(lse)[(long long)bh * Tq + row] =
+                make_float2(m[i], logf(l[i]));
         float inv = 1.f / l[i];
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
@@ -399,42 +441,58 @@ attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <typename T, typename Kernel>
 int launch(Kernel kernel, int threads, size_t bytes, const void* q, const void* k,
-           const void* v, const float* bias, void* out, int B, int H, int Tq,
-           int Tk, int D, int causal, float scale, cudaStream_t stream) {
+           const void* v, const float* bias, void* out, float* lse, int B, int H,
+           int Tq, int Tk, int D, int causal, float scale, uint32_t key,
+           uint32_t thr, float keep_scale, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(B * H, (Tq + 63) / 64);   // both kernels take 64 queries a block
     kernel<<<grid, threads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        bias, static_cast<T*>(out), H, Tq, Tk, D, causal, scale);
+        bias, static_cast<T*>(out), lse, H, Tq, Tk, D, causal, scale, key, thr,
+        keep_scale);
     return (int)cudaGetLastError();
 }
 
-#define ATTN_ARGS q, k, v, bias, out, B, H, Tq, Tk, D, causal, scale, stream
+#define ATTN_ARGS q, k, v, bias, out, lse, B, H, Tq, Tk, D, causal, scale, key, thr, \
+                  keep_scale, stream
+#define ATTN_PARAMS const void* q, const void* k, const void* v, const float* bias, \
+                    void* out, float* lse, int B, int H, int Tq, int Tk, int D, \
+                    int causal, float scale, uint32_t key, uint32_t thr, \
+                    float keep_scale, cudaStream_t stream
 
-int launch_bf16(const void* q, const void* k, const void* v, const float* bias,
-                void* out, int B, int H, int Tq, int Tk, int D, int causal,
-                float scale, cudaStream_t stream) {
+template <bool TRAIN>
+int launch_bf16(ATTN_PARAMS) {
     using T = __nv_bfloat16;
     size_t bytes = mma_smem_bytes(D);
-    if (D <= 64) return launch<T>(attn_fwd_mma_kernel<64>, MMA_THREADS, bytes, ATTN_ARGS);
-    if (D <= 128) return launch<T>(attn_fwd_mma_kernel<128>, MMA_THREADS, bytes, ATTN_ARGS);
-    if (D <= 192) return launch<T>(attn_fwd_mma_kernel<192>, MMA_THREADS, bytes, ATTN_ARGS);
-    return launch<T>(attn_fwd_mma_kernel<256>, MMA_THREADS, bytes, ATTN_ARGS);
+    if (D <= 64) return launch<T>(attn_fwd_mma_kernel<64, TRAIN>, MMA_THREADS, bytes, ATTN_ARGS);
+    if (D <= 128) return launch<T>(attn_fwd_mma_kernel<128, TRAIN>, MMA_THREADS, bytes, ATTN_ARGS);
+    if (D <= 192) return launch<T>(attn_fwd_mma_kernel<192, TRAIN>, MMA_THREADS, bytes, ATTN_ARGS);
+    return launch<T>(attn_fwd_mma_kernel<256, TRAIN>, MMA_THREADS, bytes, ATTN_ARGS);
 }
 
-int launch_f32(const void* q, const void* k, const void* v, const float* bias,
-               void* out, int B, int H, int Tq, int Tk, int D, int causal,
-               float scale, cudaStream_t stream) {
+template <bool TRAIN>
+int launch_f32(ATTN_PARAMS) {
     size_t bytes = simt_smem_bytes(D);
-    if (D <= 64) return launch<float>(attn_fwd_simt_kernel<64>, SIMT_THREADS, bytes, ATTN_ARGS);
-    if (D <= 128) return launch<float>(attn_fwd_simt_kernel<128>, SIMT_THREADS, bytes, ATTN_ARGS);
-    if (D <= 192) return launch<float>(attn_fwd_simt_kernel<192>, SIMT_THREADS, bytes, ATTN_ARGS);
-    return launch<float>(attn_fwd_simt_kernel<256>, SIMT_THREADS, bytes, ATTN_ARGS);
+    if (D <= 64) return launch<float>(attn_fwd_simt_kernel<64, TRAIN>, SIMT_THREADS, bytes, ATTN_ARGS);
+    if (D <= 128) return launch<float>(attn_fwd_simt_kernel<128, TRAIN>, SIMT_THREADS, bytes, ATTN_ARGS);
+    if (D <= 192) return launch<float>(attn_fwd_simt_kernel<192, TRAIN>, SIMT_THREADS, bytes, ATTN_ARGS);
+    return launch<float>(attn_fwd_simt_kernel<256, TRAIN>, SIMT_THREADS, bytes, ATTN_ARGS);
+}
+
+template <bool TRAIN>
+int dispatch(int dtype, ATTN_PARAMS) {
+    if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 8 || D > 256 || D % 8 != 0)
+        return -1;
+    if ((Tq + 63) / 64 > 65535) return -1;
+    if (dtype == 0) return launch_f32<TRAIN>(ATTN_ARGS);
+    if (dtype == 1) return launch_bf16<TRAIN>(ATTN_ARGS);
+    return -1;
 }
 
 #undef ATTN_ARGS
+#undef ATTN_PARAMS
 
 }  // namespace
 
@@ -447,11 +505,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const float* bias, void* out, int B, int H,
                                    int Tq, int Tk, int D, int causal, int dtype,
                                    float scale, void* stream) {
-    if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 8 || D > 256 || D % 8 != 0)
-        return -1;
-    if ((Tq + 63) / 64 > 65535) return -1;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch_f32(q, k, v, bias, out, B, H, Tq, Tk, D, causal, scale, s);
-    if (dtype == 1) return launch_bf16(q, k, v, bias, out, B, H, Tq, Tk, D, causal, scale, s);
-    return -1;
+    return dispatch<false>(dtype, q, k, v, bias, out, nullptr, B, H, Tq, Tk, D,
+                           causal, scale, 0u, 0u, 1.f,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K2: as flash_attention_fwd, plus lse (B, H, Tq, 2) float32, the (m, log l)
+// of each row's softmax, and dropout on the weights: key from the host
+// (ops/flash_attention.py::_dropout_key), thr = floor(rate * 2^32) (0 = no
+// dropout), keep_scale = 1 / (1 - rate).
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v,
+                                       const float* bias, void* out, float* lse,
+                                       int B, int H, int Tq, int Tk, int D,
+                                       int causal, int dtype, float scale,
+                                       uint32_t key, uint32_t thr, float keep_scale,
+                                       void* stream) {
+    return dispatch<true>(dtype, q, k, v, bias, out, lse, B, H, Tq, Tk, D, causal,
+                          scale, key, thr, keep_scale,
+                          static_cast<cudaStream_t>(stream));
 }

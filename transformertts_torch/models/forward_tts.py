@@ -8,7 +8,10 @@ decoder → Dense(mel). Inference is two phases, as in the JAX package:
 frame budget (rounded up to ``FRAME_BUCKET``), then ``decode`` runs at that
 budget. Serving calls (``predict``, ``predict_wav``, the synthesis path)
 take the fused attention kernel; ``need_weights=True`` takes the eager
-attention and returns the weights.
+attention and returns the weights. Training calls ``apply`` teacher-forced
+(target durations and pitch) with ``training=True``, which turns on the
+model's dropouts, drawn from an explicit ``torch.Generator``; its attention
+takes the differentiable fused kernels.
 
 Parameters live in float32; ``compute_dtype='bfloat16'`` runs the network in
 bfloat16 with float32 LayerNorm statistics and softmax.
@@ -87,13 +90,15 @@ class ForwardTransformer(nn.Module):
             conv_filters=encoder_attention_conv_filters,
             dense_blocks=encoder_dense_blocks,
             kernel_size=encoder_attention_conv_kernel, conv_activation='relu',
-            name='Encoder')
+            name='Encoder', dropout_rate=dropout_rate)
         self.dur_pred = blocks.StatPredictor(
             dim, duration_conv_filters, duration_kernel_size,
-            conv_activation='relu', dense_activation='relu')
+            conv_activation='relu', dense_activation='relu',
+            dropout_rate=predictors_dropout)
         self.pitch_pred = blocks.StatPredictor(
             dim, pitch_conv_filters, pitch_kernel_size,
-            conv_activation='relu', dense_activation='linear')
+            conv_activation='relu', dense_activation='linear',
+            dropout_rate=predictors_dropout)
         self.pitch_embed = core.Dense(1, dim, activation='relu')
         self.decoder = blocks.SelfAttentionBlocks(
             model_dim=decoder_model_dimension,
@@ -103,7 +108,7 @@ class ForwardTransformer(nn.Module):
             conv_filters=decoder_attention_conv_filters,
             dense_blocks=decoder_dense_blocks,
             kernel_size=decoder_attention_conv_kernel, conv_activation='relu',
-            name='Decoder')
+            name='Decoder', dropout_rate=dropout_rate)
         self.out = core.Dense(decoder_model_dimension, mel_channels)
 
     @property
@@ -121,22 +126,27 @@ class ForwardTransformer(nn.Module):
 
     # --------------------------------------------------------------- compute
 
-    def encode(self, tokens: torch.Tensor, need_weights: bool = False) -> dict:
+    def encode(self, tokens: torch.Tensor, need_weights: bool = False,
+               training: bool = False, generator: Optional[torch.Generator] = None
+               ) -> dict:
         """tokens (B, N) → encoder features, durations and pitch (B, N, 1)."""
         enc_pad_mask = masks.encoder_padding_mask(tokens)
         x = self.encoder_prenet(tokens).to(self.compute_dtype)
-        x, encoder_attention = self.encoder(x, enc_pad_mask, need_weights)
+        x, encoder_attention = self.encoder(x, enc_pad_mask, need_weights, training,
+                                            generator)
         keep = (1.0 - enc_pad_mask[:, 0, 0, :])[:, :, None].to(x.dtype)
-        return {'features': x, 'durations': self.dur_pred(x, keep),
-                'pitch': self.pitch_pred(x, keep), 'keep_mask': keep,
+        return {'features': x, 'durations': self.dur_pred(x, keep, training, generator),
+                'pitch': self.pitch_pred(x, keep, training, generator), 'keep_mask': keep,
                 'encoder_attention': encoder_attention}
 
     def decode(self, features: torch.Tensor, use_durations: torch.Tensor,
-               max_frames: int, need_weights: bool = False) -> dict:
+               max_frames: int, need_weights: bool = False, training: bool = False,
+               generator: Optional[torch.Generator] = None) -> dict:
         """Expand by durations (B, N) and decode to a float32 mel (B, T, mels)."""
         mels, frame_valid = regulate_length(features, use_durations, max_frames)
         expanded_mask = (1.0 - frame_valid)[:, None, None, :]
-        mels, decoder_attention = self.decoder(mels, expanded_mask, need_weights)
+        mels, decoder_attention = self.decoder(mels, expanded_mask, need_weights, training,
+                                               generator)
         mels = self.out(mels) * frame_valid[:, :, None]
         return {'mel': mels.float(), 'expanded_mask': expanded_mask,
                 'decoder_attention': decoder_attention}
@@ -147,13 +157,15 @@ class ForwardTransformer(nn.Module):
               durations_scalar: float = 1.0,
               max_durations_mask: Optional[torch.Tensor] = None,
               min_durations_mask: Optional[torch.Tensor] = None,
-              need_weights: bool = False) -> dict:
+              need_weights: bool = False, training: bool = False,
+              generator: Optional[torch.Generator] = None) -> dict:
         """Full forward pass at a static ``max_frames``.
 
         target_durations / target_pitch: (B, N, 1), or None to use the
-        predictions.
+        predictions. ``training`` applies the dropouts, drawn from
+        ``generator`` (a generator on the model's device).
         """
-        enc = self.encode(tokens, need_weights)
+        enc = self.encode(tokens, need_weights, training, generator)
         x, durations, pitch = enc['features'], enc['durations'], enc['pitch']
         if target_pitch is not None:
             pitch_in = target_pitch.to(x.dtype)
@@ -170,7 +182,7 @@ class ForwardTransformer(nn.Module):
             use_durations = torch.maximum(use_durations, min_durations_mask[:, :, None])
         # padded phonemes must not emit frames
         use_durations = use_durations[:, :, 0] * enc['keep_mask'][:, :, 0]
-        dec = self.decode(x, use_durations, max_frames, need_weights)
+        dec = self.decode(x, use_durations, max_frames, need_weights, training, generator)
         return {'mel': dec['mel'],
                 'duration': durations.float(),
                 'pitch': pitch.float(),

@@ -4,8 +4,9 @@
 Submodules carry the JAX parameter-tree names (``sarn``, ``conv_0``,
 ``ln``, ...), so a state-dict key is the JAX ``flatten_params`` path with
 ``.`` for ``/`` (see ``models/persistence.py``). ``need_weights`` selects the
-attention path: eager with float32 weights returned, or the fused kernel
-with none (``nn/attention.py``).
+attention path: eager with float32 weights returned, or the fused kernels
+with none (``nn/attention.py``). ``training`` turns on the JAX package's
+dropouts, drawn from ``generator``.
 """
 from typing import List, Optional
 
@@ -24,25 +25,28 @@ def _keep(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class FFNResNorm(nn.Module):
-    """x → LN(x + W2(relu(W1 x)))."""
+    """x → LN(x + dropout(W2(relu(W1 x))))."""
 
-    def __init__(self, model_dim: int, hidden: int):
+    def __init__(self, model_dim: int, hidden: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d1 = core.Dense(model_dim, hidden, activation='relu')
         self.d2 = core.Dense(hidden, model_dim)
         self.ln = core.LayerNorm(model_dim)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x):
-        return self.ln(self.d2(self.d1(x)) + x)
+    def forward(self, x, training: bool = False, generator=None):
+        y = core.dropout(self.d2(self.d1(x)), self.dropout_rate, generator, training)
+        return self.ln(y + x)
 
 
 class CNNResNorm(nn.Module):
     """Residual conv stack: inner convs with activation, last conv linear,
-    LN(inputs + x)."""
+    dropout, LN(inputs + x)."""
 
     def __init__(self, in_dim: int, filters: List[int], kernel_size: int,
-                 inner_activation: str):
+                 inner_activation: str, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         dims = [in_dim] + list(filters)
         self.convs = []
         for i in range(len(filters)):
@@ -52,19 +56,21 @@ class CNNResNorm(nn.Module):
             self.convs.append(conv)
         self.ln = core.LayerNorm(filters[-1])
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False, generator=None):
         y = x
         for conv in self.convs:
             y = conv(y)
+        y = core.dropout(y, self.dropout_rate, generator, training)
         return self.ln(x + y)
 
 
 class CNNDropout(nn.Module):
-    """Stat-predictor conv stack: each layer conv → act → LN."""
+    """Stat-predictor conv stack: each layer conv → act → LN → dropout."""
 
     def __init__(self, in_dim: int, filters: List[int], kernel_size: int,
-                 inner_activation: str, last_activation: str):
+                 inner_activation: str, last_activation: str, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         dims = [in_dim] + list(filters)
         acts = [inner_activation] * (len(filters) - 1) + [last_activation]
         self.layers = []
@@ -75,9 +81,9 @@ class CNNDropout(nn.Module):
             self.add_module(f'ln_{i}', ln)
             self.layers.append((conv, ln))
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False, generator=None):
         for conv, ln in self.layers:
-            x = ln(conv(x))
+            x = core.dropout(ln(conv(x)), self.dropout_rate, generator, training)
         return x
 
 
@@ -85,68 +91,76 @@ class StatPredictor(nn.Module):
     """Duration/pitch predictor: mask → CNNDropout → Dense(1, act) → mask."""
 
     def __init__(self, in_dim: int, conv_filters: List[int], kernel_size: int,
-                 conv_activation: str, dense_activation: str):
+                 conv_activation: str, dense_activation: str, dropout_rate: float = 0.0):
         super().__init__()
         self.conv_blocks = CNNDropout(in_dim, conv_filters, kernel_size,
-                                      conv_activation, conv_activation)
+                                      conv_activation, conv_activation, dropout_rate)
         self.linear = core.Dense(conv_filters[-1], 1, activation=dense_activation)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, training: bool = False, generator=None):
         """mask: (B, T, 1), 1 = real data."""
         mask = mask.to(x.dtype)
-        return self.linear(self.conv_blocks(x * mask)) * mask
+        return self.linear(self.conv_blocks(x * mask, training, generator)) * mask
 
 
 class SelfAttentionResNorm(nn.Module):
 
-    def __init__(self, model_dim: int, num_heads: int):
+    def __init__(self, model_dim: int, num_heads: int, dropout_rate: float = 0.0):
         super().__init__()
-        self.mha = MultiHeadAttention(model_dim, num_heads)
+        self.mha = MultiHeadAttention(model_dim, num_heads, dropout_rate)
         self.ln = core.LayerNorm(model_dim)
 
-    def forward(self, x, mask, need_weights: bool = True):
-        attn_out, weights = self.mha(x, x, x, mask, need_weights)
+    def forward(self, x, mask, need_weights: bool = True, training: bool = False,
+                generator=None):
+        attn_out, weights = self.mha(x, x, x, mask, need_weights, training, generator)
         return self.ln(attn_out + x), weights
 
 
 class SelfAttentionDenseBlock(nn.Module):
 
-    def __init__(self, model_dim: int, num_heads: int, hidden: int):
+    def __init__(self, model_dim: int, num_heads: int, hidden: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
-        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
-        self.ffn = FFNResNorm(model_dim, hidden)
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads, dropout_rate)
+        self.ffn = FFNResNorm(model_dim, hidden, dropout_rate)
 
-    def forward(self, x, mask, need_weights: bool = True):
-        attn_out, weights = self.sarn(x, mask, need_weights)
+    def forward(self, x, mask, need_weights: bool = True, training: bool = False,
+                generator=None):
+        attn_out, weights = self.sarn(x, mask, need_weights, training, generator)
         keep = _keep(mask, attn_out.dtype)
-        return self.ffn(attn_out * keep) * keep, weights
+        return self.ffn(attn_out * keep, training, generator) * keep, weights
 
 
 class SelfAttentionConvBlock(nn.Module):
 
     def __init__(self, model_dim: int, num_heads: int, conv_filters: List[int],
-                 kernel_size: int, conv_activation: str):
+                 kernel_size: int, conv_activation: str, dropout_rate: float = 0.0):
         super().__init__()
-        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
-        self.conv = CNNResNorm(model_dim, conv_filters, kernel_size, conv_activation)
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads, dropout_rate)
+        self.conv = CNNResNorm(model_dim, conv_filters, kernel_size, conv_activation,
+                               dropout_rate)
 
-    def forward(self, x, mask, need_weights: bool = True):
-        attn_out, weights = self.sarn(x, mask, need_weights)
+    def forward(self, x, mask, need_weights: bool = True, training: bool = False,
+                generator=None):
+        attn_out, weights = self.sarn(x, mask, need_weights, training, generator)
         keep = _keep(mask, attn_out.dtype)
-        return self.conv(attn_out * keep) * keep, weights
+        return self.conv(attn_out * keep, training, generator) * keep, weights
 
 
 class SelfAttentionBlocks(nn.Module):
-    """Stack: LN → +scalar·posenc → dense blocks → conv blocks. (The
-    Aligner's reduction-factor striding of the posenc comes with its slice.)"""
+    """Stack: LN → +scalar·posenc → dropout → dense blocks → conv blocks.
+    (The Aligner's reduction-factor striding of the posenc comes with its
+    slice.)"""
 
     def __init__(self, model_dim: int, feed_forward_dimension: Optional[int],
                  num_heads: List[int], maximum_position_encoding: int,
                  conv_filters: Optional[List[int]], dense_blocks: int,
                  kernel_size: Optional[int],
-                 conv_activation: Optional[str], name: str = 'Encoder'):
+                 conv_activation: Optional[str], name: str = 'Encoder',
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.name = name
+        self.dropout_rate = dropout_rate
         self.register_buffer(
             'pos_encoding',
             torch.from_numpy(positional_encoding(maximum_position_encoding, model_dim)),
@@ -155,27 +169,30 @@ class SelfAttentionBlocks(nn.Module):
         self.pos_encoding_scalar = nn.Parameter(torch.ones(()))
         self.dense_layers, self.conv_layers = [], []
         for i, h in enumerate(num_heads[:dense_blocks]):
-            block = SelfAttentionDenseBlock(model_dim, h, feed_forward_dimension)
+            block = SelfAttentionDenseBlock(model_dim, h, feed_forward_dimension,
+                                            dropout_rate)
             self.add_module(f'dense_{i}', block)
             self.dense_layers.append(block)
         for i, h in enumerate(num_heads[dense_blocks:]):
             block = SelfAttentionConvBlock(model_dim, h, conv_filters, kernel_size,
-                                           conv_activation)
+                                           conv_activation, dropout_rate)
             self.add_module(f'conv_{i}', block)
             self.conv_layers.append(block)
 
-    def forward(self, x, mask, need_weights: bool = True):
+    def forward(self, x, mask, need_weights: bool = True, training: bool = False,
+                generator=None):
         """Returns (y, {block name: weights}); the dict is empty when
         ``need_weights`` is False."""
         y = self.ln(x)
         pe = self.pos_encoding[:, :x.shape[1]]
         # keep the compute dtype: the float32 scalar would promote the stack
         y = y + self.pos_encoding_scalar.to(y.dtype) * pe.to(y.dtype)
+        y = core.dropout(y, self.dropout_rate, generator, training)
         attention_weights = {}
         for kind, layers in (('DenseBlock', self.dense_layers),
                              ('ConvBlock', self.conv_layers)):
             for i, block in enumerate(layers):
-                y, w = block(y, mask, need_weights)
+                y, w = block(y, mask, need_weights, training, generator)
                 if need_weights:
                     attention_weights[f'{self.name}_{kind}{i + 1}_SelfAttention'] = w
         return y, attention_weights

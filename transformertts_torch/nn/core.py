@@ -9,8 +9,9 @@ layouts. Initializers match the JAX package's Keras defaults (glorot-uniform
 kernels, zero biases, uniform(-0.05, 0.05) embeddings), drawn from an
 explicit ``torch.Generator``.
 
-This slice is inference only: dropout is the identity, so no module applies
-it (the model config keeps its rates).
+Dropout takes an explicit ``torch.Generator`` on the tensor's device and a
+``training`` flag, in place of the JAX package's rng keys and
+``deterministic``.
 """
 import math
 from typing import Optional
@@ -33,6 +34,18 @@ def glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         w.uniform_(-limit, limit, generator=generator)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """Inverted dropout; the identity when not training or at rate 0. The
+    mask is drawn from ``generator`` (on x's device)."""
+    if not training or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, device=x.device, generator=generator) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class Dense(nn.Module):

@@ -1,7 +1,7 @@
 """Build the port's CUDA sources into shared libraries and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
-``nvcc`` builds it in seconds. The build runs at first use, never at import,
+``nvcc`` builds it in seconds; ``csrc/*.cuh`` are headers the sources share. The build runs at first use, never at import,
 into ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
 keyed on a hash of the source and the flags: an edited source rebuilds, an
 unchanged one loads the library already built.
@@ -12,6 +12,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
@@ -36,8 +37,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    # the shared headers are part of every source's digest
+    sources = [CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))]
+    digest = hashlib.sha256(b''.join(f.read_bytes() for f in sources)
+                            + ' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
@@ -69,3 +72,10 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build(name)))
     return _loaded[name]
+
+
+def build_all(names) -> list:
+    """Build several sources at once, one nvcc each, all started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))

@@ -35,9 +35,27 @@ prints no result):
    timed step at B32 x 128 tokens x 512 frames with the launches a step;
    30 steps on one batch, whose loss must fall; and a float32 model at
    dropout 0 whose kernel-path gradients must match the eager path's;
-7. the last two lines: the kernels' JSON record, then the contract line.
+7. featurization kernel: the fused log-mel frontend (K5) against
+   ``fused_log_mel_plain`` in float32 (the JAX test's settings, the
+   published ones, a window shorter than n_fft, a hop that does not divide
+   n_fft, frame counts that are not a multiple of 64), then timed with the
+   plain version and ``torch.stft`` (cuFFT) at B16 x 262,144 and 131,072
+   samples;
+8. featurization slice: ``transformertts_torch.create_training_data`` (its
+   ``main``) over 64 seeded synthetic LJSpeech-like clips of 1-10 s, with
+   the K5 launch count, the files it writes, one clip's mel against the
+   plain version, the voiced share and the split, in clips/s and seconds of
+   audio per second;
+9. the last three lines: the kernels' JSON record (each kernel's time, its
+   plain version's, one PyTorch library call's that computes the same
+   function, and its bound: the larger of the FLOPs the function needs
+   (for K5 an FFT's, not its kernel's DFT as GEMMs) over the card's peak
+   rate for their type and its bytes, each input read once and each output
+   written once, over 3.35 TB/s), the card's name and power limit, then the
+   contract line.
 """
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -68,7 +86,13 @@ TRAIN_DECODER_SHAPE = (32, 2, 512, 512, 192)
 BF16_GRAD_TOL = dict(atol=0.12, rtol=0.12)  # the JAX flash backward's bfloat16 bar
 F32_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)   # ... and its float32 bar
 WIRING_REL_L2_BAR = 1e-3
-KERNELS = ('flash_attention_fwd', 'flash_attention_bwd')
+LOG_MEL_TOL = dict(atol=2e-4, rtol=1e-3)  # the JAX fused log-mel kernel's bar
+KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'fused_log_mel')
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, float32
+# outside them, and HBM3
+PEAK_FLOPS = {'bf16': 989e12, 'f32': 67e12}
+HBM_BYTES_PER_S = 3.35e12
+N_CLIPS = 64  # synthetic clips the featurization slice featurizes
 
 PUBLISHED = dict(
     encoder_model_dimension=384, decoder_model_dimension=384, dropout_rate=0.1,
@@ -196,6 +220,21 @@ def _time_ms(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: float, peak: str) -> dict:
+    """The least time the card could take: the larger of the FLOPs over the
+    peak rate of their type and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[peak], nbytes / HBM_BYTES_PER_S
+    return {'bound_ms': max(t_ops, t_bytes) * 1e3,
+            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
+
+
+def _sdpa_backend(q, k, v, mask, dropout_p: float) -> str:
+    """The backend PyTorch's dispatcher picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+    choice = torch._fused_sdp_choice(q, k, v, attn_mask=mask, dropout_p=dropout_p)
+    return SDPBackend(choice).name
+
+
 def kernel_phase() -> dict:
     """Kernel vs plain in both dtypes (each has its own kernel: SIMT for
     float32, tensor cores for bfloat16), then both timed at the slice shapes."""
@@ -222,9 +261,20 @@ def kernel_phase() -> dict:
         q, k, v, bias = _qkv(shape, torch.bfloat16, gen)
         ms = _time_ms(lambda: flash_attention(q, k, v, bias))
         plain_ms = _time_ms(lambda: attention_plain(q, k, v, bias))
-        log(f'bf16 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+        # the library yardstick: PyTorch's fused attention with the additive mask
+        mask = bias[:, None, None, :].to(q.dtype)
+        backend = _sdpa_backend(q, k, v, mask, 0.0)
+        library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))
+        b, h, tq, tk, d = shape
+        limit = bound(4 * b * h * tq * tk * d,
+                      2 * (2 * b * h * tq * d + 2 * b * h * tk * d) + 4 * b * tk, 'bf16')
+        log(f'bf16 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+            f'scaled_dot_product_attention ({backend}) {library_ms:.4f} ms, bound '
+            f'{limit["bound_ms"]:.4f} ms ({limit["bound_by"]})')
         record[name] = dict(shape=list(shape), max_abs_err=errors[shape, torch.bfloat16],
-                            ms=ms, plain_ms=plain_ms)
+                            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            library_backend=backend, **limit)
     return record
 
 
@@ -282,12 +332,15 @@ def trainable_kernel_phase() -> dict:
         dout = torch.randn(q.shape, device='cuda', generator=gen).to(torch.bfloat16)
         args = (False, 0.1, 1234, 5678)
         out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
+        # the backward computes D = rowsum(dO∘O) once and hands it to K3 and K4
+        dsum = fa.row_dot(dout, out)
         t = dict(
             K2=_time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, bias, *args)),
             K3=_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout,
-                                                          *args)),
+                                                          *args, dsum=dsum)),
             K4=_time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout,
-                                                           *args)),
+                                                           *args, dsum=dsum)),
+            row_dot=_time_ms(lambda: fa.row_dot(dout, out)),
             plain_fwd=_time_ms(lambda: fa.attention_fwd_lse_plain(q, k, v, bias, *args)),
             plain_bwd=_time_ms(lambda: fa.attention_bwd_plain(q, k, v, bias, out, lse, dout,
                                                               *args)))
@@ -300,9 +353,49 @@ def trainable_kernel_phase() -> dict:
             f'{t["plain_fwd"]:.4f} ms; K3 {t["K3"]:.4f} ms + K4 {t["K4"]:.4f} ms vs plain '
             f'backward {t["plain_bwd"]:.4f} ms; forward+backward '
             f'{t["K2"] + t["K3"] + t["K4"]:.4f} ms vs {t["plain_fwd"] + t["plain_bwd"]:.4f} ms '
-            f'(plain at dropout 0: {plain0:.4f} ms)')
+            f'(plain at dropout 0: {plain0:.4f} ms); row_dot {t["row_dot"]:.4f} ms once a '
+            f'backward')
+        t.update(_library_training_attention(q, k, v, bias, dout))
+        b, h, tq, tk, d = shape
+        # bf16 rows of q or o, dO or dQ (each b·h·tq·d) and of k, v, dK or dV
+        # (each b·h·tk·d); float32 bias, (m, log l) pairs and D rows
+        q_row, k_row = 2 * b * h * tq * d, 2 * b * h * tk * d
+        lse_bytes, dsum_bytes, bias_bytes = 8 * b * h * tq, 4 * b * h * tq, 4 * b * tk
+        t['bounds'] = {
+            # in: q, k, v, bias; out: o, (m, log l)
+            'K2': bound(4 * b * h * tq * tk * d,
+                        2 * q_row + 2 * k_row + lse_bytes + bias_bytes, 'bf16'),
+            # in: q, k, v, dO, (m, log l), D, bias; out: dQ
+            'K3': bound(6 * b * h * tq * tk * d,
+                        3 * q_row + 2 * k_row + lse_bytes + dsum_bytes + bias_bytes, 'bf16'),
+            # in: q, k, v, dO, (m, log l), D, bias; out: dK, dV
+            'K4': bound(8 * b * h * tq * tk * d,
+                        2 * q_row + 4 * k_row + lse_bytes + dsum_bytes + bias_bytes, 'bf16')}
+        log(f'  bounds: ' + ', '.join(f'{k} {v["bound_ms"]:.4f} ms ({v["bound_by"]})'
+                                      for k, v in t['bounds'].items()))
         record[name] = dict(shape=list(shape), **t)
     return {'errors': errors, 'times': record}
+
+
+def _library_training_attention(q, k, v, bias, dout) -> dict:
+    """PyTorch's fused attention at dropout 0.1 with the additive mask,
+    forward alone and forward + backward through autograd: the yardstick of
+    K2 and of K2 + K3 + K4."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    mask = bias[:, None, None, :].to(q.dtype)
+    backend = _sdpa_backend(qg, kg, vg, mask, 0.1)
+
+    def fwd_bwd():
+        out = sdpa(qg, kg, vg, attn_mask=mask, dropout_p=0.1)
+        torch.autograd.grad(out, (qg, kg, vg), dout)
+
+    fwd = _time_ms(lambda: sdpa(qg, kg, vg, attn_mask=mask, dropout_p=0.1))
+    both = _time_ms(fwd_bwd)
+    log(f'  scaled_dot_product_attention ({backend}), dropout 0.1: forward {fwd:.4f} ms, '
+        f'forward+backward {both:.4f} ms')
+    return {'library_fwd': fwd, 'library_bwd': both - fwd, 'library_fwd_bwd': both,
+            'library_backend': backend}
 
 
 def _batch_like_serving(model, lines):
@@ -532,6 +625,185 @@ def training_phase() -> dict:
     return {'launches': launches, 'ms_per_step': ms, 'frames_per_s': frames_per_s}
 
 
+def _log_mel_case(gen, b: int, n: int, n_fft: int):
+    """(b, n + n_fft) reflect-centred noise clips on the device."""
+    wav = torch.randn(b, n, device=DEVICE, generator=gen) * 0.3
+    return torch.nn.functional.pad(wav[:, None], (n_fft // 2, n_fft // 2),
+                                   mode='reflect')[:, 0].contiguous()
+
+
+def _log_mel_library(wav, sr, n_fft, hop, win, n_mels, f_min, f_max, clip_min=1e-5):
+    """One PyTorch stft (cuFFT) call, the magnitude, the mel product and the
+    clipped log: the same function as K5, as (B, n_mels, F)."""
+    from transformertts_torch.audio.spectral import mel_filterbank
+    fb = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, f_min, f_max),
+                         dtype=torch.float32, device=wav.device)
+    window = torch.hann_window(win, periodic=True, device=wav.device)
+
+    def run():
+        spec = torch.stft(wav, n_fft, hop, win_length=win, window=window, center=False,
+                          return_complex=True).abs()
+        return (fb @ spec).clamp_min(clip_min).log()
+    return run
+
+
+def log_mel_kernel_phase() -> dict:
+    """K5 against its plain version in float32, then timed with the plain
+    version and the library call at featurization's bucket shapes."""
+    from transformertts_torch.ops.fused_log_mel import (fused_log_mel, fused_log_mel_plain,
+                                                        kernel_layout)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    sr = 22050
+    # (b, samples, n_fft, hop, win, mels): the JAX test's settings, the
+    # published ones, win < n_fft, a hop that does not divide n_fft, frame
+    # counts off a multiple of 64, and a featurization bucket
+    cases = [(1, sr // 2, 512, 128, 512, 20), (3, sr // 4, 512, 128, 512, 20),
+             (2, sr, 1024, 256, 1024, 80), (3, 30000, 1024, 256, 800, 80),
+             (2, 40000, 1024, 300, 1024, 80), (4, 777, 1024, 256, 1024, 80),
+             (16, 262144 - 1024, 1024, 256, 1024, 80)]
+    worst = 0.0
+    for b, n, n_fft, hop, win, mels in cases:
+        wav = _log_mel_case(gen, b, n, n_fft)
+        args = (sr, n_fft, hop, win, mels, 0, 8000)
+        out = fused_log_mel(wav, *args)
+        torch.cuda.synchronize()
+        ref = fused_log_mel_plain(wav, *args)
+        if out.shape != (b, 1 + n // hop, mels) or not torch.isfinite(out).all():
+            raise AssertionError(f'K5 output {tuple(out.shape)} or not finite at {args}')
+        torch.testing.assert_close(out, ref, **LOG_MEL_TOL)
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        log(f'K5 B{b} x {n} samples, n_fft {n_fft} hop {hop} win {win} mels {mels}: '
+            f'{out.shape[1]} frames, max |kernel - plain| {err:.3g}')
+    times = {}
+    for t in (262144, 131072):
+        wav = torch.randn(16, t, device=DEVICE, generator=gen) * 0.3
+        args = (sr, 1024, 256, 1024, 80, 0, 8000)
+        library = _log_mel_library(wav, *args)
+        lib_err = (library().transpose(1, 2) - fused_log_mel_plain(wav, *args)).abs().max()
+        ms = _time_ms(lambda: fused_log_mel(wav, *args))
+        plain_ms = _time_ms(lambda: fused_log_mel_plain(wav, *args))
+        library_ms = _time_ms(library)
+        layout = kernel_layout(str(wav.device), sr, 1024, 1024, 80, 0, 8000)
+        n_frames = 1 + (t - 1024) // 256
+        nnz = int((layout.fb != 0).sum())
+        # the work the function needs: a real FFT a frame (2.5·n·log2 n) and
+        # the sparse mel product over the filterbank's nonzero weights, in
+        # float32; the wav, those weights and the log-mel, in float32. The
+        # kernel's DFT as GEMMs does some 40 times the FFT's operations.
+        limit = bound(16 * n_frames * (2.5 * 1024 * math.log2(1024) + 2 * nnz),
+                      4 * (16 * t + nnz + 16 * n_frames * 80), 'f32')
+        log(f'K5 B16 x {t} samples ({n_frames} frames): kernel {ms:.4f} ms, plain '
+            f'{plain_ms:.4f} ms, torch.stft+mel {library_ms:.4f} ms (max |library - plain| '
+            f'{lib_err:.3g}), bound {limit["bound_ms"]:.4f} ms ({limit["bound_by"]})')
+        times[t] = dict(shape=[16, t], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        **limit)
+    return {'max_abs_err': worst, 'times': times}
+
+
+def _synthetic_corpus(work: Path, n_clips: int, seed: int = SEED):
+    """LJSpeech-like clips at 22,050 Hz drawn from ``seed``: 1-10 s each,
+    harmonics of a 90-260 Hz voice with vibrato and syllabic loudness, over
+    faint noise; clips over 4 s get one or two gaps of 0.6-1.0 s of near
+    silence, which the VAD trims. Writes wavs/ and an LJSpeech metadata.csv;
+    returns the clip lengths in samples."""
+    from scipy.io import wavfile
+    sr = 22050
+    rng = np.random.default_rng(seed)
+    words = (ROOT / 'config' / 'test_sentences.txt').read_text().lower().split()
+    (work / 'wavs').mkdir(parents=True)
+    lines, lengths = [], []
+    for i in range(n_clips):
+        n = int(sr * rng.uniform(1.0, 10.0))
+        t = np.arange(n) / sr
+        f0 = rng.uniform(90, 260) * (1 + 0.03 * np.sin(2 * np.pi * rng.uniform(4, 6) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        voice = sum(rng.uniform(0.1, 0.3) / k * np.sin(k * phase) for k in range(1, 9))
+        loud = 0.35 + 0.65 * (0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(3, 5) * t))
+        y = voice * loud + 0.005 * rng.standard_normal(n)
+        if n > 4 * sr:
+            for _ in range(rng.integers(1, 3)):
+                gap = int(sr * rng.uniform(0.6, 1.0))
+                start = int(rng.integers(sr, n - sr - gap))
+                y[start:start + gap] = 1e-4 * rng.standard_normal(gap)
+        wavfile.write(work / 'wavs' / f'LJ{i:03d}-0001.wav', sr,
+                      (np.clip(y, -1, 1) * 32767).astype(np.int16))
+        text = ' '.join(rng.choice(words, int(rng.integers(3, 15))))
+        lines.append(f'LJ{i:03d}-0001|{text}|{text}')
+        lengths.append(n)
+    (work / 'metadata.csv').write_text('\n'.join(lines) + '\n', encoding='utf-8')
+    return lengths
+
+
+def featurization_phase() -> dict:
+    """Stage 1 on the card: create_training_data over the synthetic corpus."""
+    from transformertts_torch import create_training_data
+    from transformertts_torch.audio import Audio
+    from transformertts_torch.ops.fused_log_mel import fused_log_mel, fused_log_mel_plain
+    from transformertts_torch.utils.config import TrainingConfigManager
+    work = WORK / 'featurize'
+    if work.exists():
+        shutil.rmtree(work)
+    lengths = _synthetic_corpus(work, N_CLIPS)
+    n_test = 8
+    cfg = write_session(work, data_overrides={'n_test': n_test})
+    cm = TrainingConfigManager(cfg, aligner=True)
+
+    fused_log_mel.launches = 0
+    t0 = time.perf_counter()
+    stats = create_training_data.main(['--config', str(cfg), '--device', DEVICE,
+                                       '--workers', '4'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_log_mel.launches
+
+    mels = sorted(cm.mel_dir.glob('*.npy'))
+    kept = len(mels)
+    buckets = math.ceil(kept / create_training_data.BATCH)
+    if kept != N_CLIPS or launches != buckets:
+        raise AssertionError(f'kept {kept} of {N_CLIPS} clips with {launches} K5 launches, '
+                             f'not {buckets}')
+    audio = Audio.from_config(cm.config)
+    frames, voiced = 0, 0
+    for path in mels:
+        mel, pitch = np.load(path), np.load(cm.pitch_dir / path.name)
+        if mel.ndim != 2 or mel.shape[1] != 80 or pitch.shape != (mel.shape[0],) \
+                or not np.isfinite(mel).all() or not np.isfinite(pitch).all():
+            raise AssertionError(f'{path.name}: mel {mel.shape}, pitch {pitch.shape}')
+        frames += mel.shape[0]
+        voiced += int((pitch != 0).sum())
+    raw_frames = sum(1 + n // audio.hop_length for n in lengths)
+    if not 0 < voiced < frames or not frames < raw_frames:
+        raise AssertionError(f'voiced {voiced} of {frames} frames; {raw_frames} before '
+                             f'trimming')
+    # the longest clip's mel against the plain version of its padded wav
+    name = max(mels, key=lambda p: np.load(p).shape[0]).stem
+    y, _ = audio.load_wav(cm.wav_directory / f'{name}.wav')
+    centered = np.pad(y, audio.n_fft // 2, mode='reflect')[None]
+    ref = fused_log_mel_plain(torch.as_tensor(centered, device=DEVICE), audio.sampling_rate,
+                              audio.n_fft, audio.hop_length, audio.win_length,
+                              audio.mel_channels, audio.f_min, audio.f_max)[0]
+    torch.testing.assert_close(torch.as_tensor(np.load(cm.mel_dir / f'{name}.npy'),
+                                               device=DEVICE), ref, **LOG_MEL_TOL)
+    train = cm.train_metadata_path.read_text(encoding='utf-8').splitlines()
+    valid = cm.valid_metadata_path.read_text(encoding='utf-8').splitlines()
+    phonemized = cm.phonemized_metadata_path.read_text(encoding='utf-8').splitlines()
+    if (len(train), len(valid), len(phonemized)) != (kept - n_test, n_test, kept) \
+            or not (cm.data_dir / 'pitch_stats.pkl').exists():
+        raise AssertionError(f'split {len(train)} train / {len(valid)} valid / '
+                             f'{len(phonemized)} phonemized of {kept}')
+    seconds = sum(lengths) / audio.sampling_rate
+    log(f'create_training_data: {kept} of {N_CLIPS} clips kept, {seconds:.1f} s of audio, '
+        f'{frames} mel frames ({raw_frames} before trimming), voiced share '
+        f'{voiced / frames:.3f}, split {len(train)}/{len(valid)}; K5 launches {launches}; '
+        f'{name} mel matches the plain version; {wall:.2f} s, {kept / wall:.2f} clips/s, '
+        f'{seconds / wall:.2f} s of audio/s; the mel and pitch pass {stats["mel_pitch_s"]:.2f} '
+        f's, of it {stats["featurize_batch_s"]:.2f} s in featurize_batch (padding, K5, '
+        f'YIN, saving) and the rest waiting on the host workers')
+    return {'launches': launches, 'clips_per_s': kept / wall,
+            'audio_s_per_s': seconds / wall}
+
+
 def main():
     card = device_phase()
     build_phase()
@@ -539,6 +811,8 @@ def main():
     trainable = trainable_kernel_phase()
     result = slice_phase()
     train = training_phase()
+    log_mel = log_mel_kernel_phase()
+    featurize = featurization_phase()
     dec = times['decoder']
     kernels = [{
         'name': 'flash_attention_fwd', 'route': 'cuda',
@@ -546,25 +820,50 @@ def main():
         'replaces': 'transformertts_tpu/ops/flash_attention.py:48',
         'launches': result['launches'],
         'max_abs_err': max(t['max_abs_err'] for t in times.values()),
-        'ms': dec['ms'], 'plain_ms': dec['plain_ms'], 'shape': dec['shape'],
+        'ms': dec['ms'], 'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
+        'bound_by': dec['bound_by'], 'library_ms': dec['library_ms'],
+        'library': f'scaled_dot_product_attention ({dec["library_backend"]})',
+        'shape': dec['shape'],
         'encoder_ms': times['encoder']['ms'],
         'encoder_plain_ms': times['encoder']['plain_ms'],
     }]
     t_dec, t_enc = trainable['times']['decoder'], trainable['times']['encoder']
-    for i, (name, label, source, line, plain) in enumerate((
-            ('flash_attention_fwd_lse', 'K2', 'flash_attention_fwd.cu', 151, 'plain_fwd'),
-            ('flash_attention_bwd_dq', 'K3', 'flash_attention_bwd.cu', 176, 'plain_bwd'),
-            ('flash_attention_bwd_dkv', 'K4', 'flash_attention_bwd.cu', 204, 'plain_bwd'))):
+    for i, (name, label, source, line, plain, library) in enumerate((
+            ('flash_attention_fwd_lse', 'K2', 'flash_attention_fwd.cu', 151, 'plain_fwd',
+             'library_fwd'),
+            ('flash_attention_bwd_dq', 'K3', 'flash_attention_bwd.cu', 176, 'plain_bwd',
+             'library_bwd'),
+            ('flash_attention_bwd_dkv', 'K4', 'flash_attention_bwd.cu', 204, 'plain_bwd',
+             'library_bwd'))):
         kernels.append({
             'name': name, 'route': 'cuda', 'source': f'transformertts_torch/csrc/{source}',
             'replaces': f'transformertts_tpu/ops/flash_attention.py:{line}',
             'launches': train['launches'][i],
             'max_abs_err': trainable['errors'][label],
-            'ms': t_dec[label], 'plain_ms': t_dec[plain], 'shape': t_dec['shape'],
+            'ms': t_dec[label], 'plain_ms': t_dec[plain], **t_dec['bounds'][label],
+            'library_ms': t_dec[library],
+            'library': (f'scaled_dot_product_attention ({t_dec["library_backend"]}), dropout '
+                        f'0.1, {"forward" if label == "K2" else "backward (dQ, dK, dV)"}'),
+            'shape': t_dec['shape'],
             'encoder_ms': t_enc[label], 'encoder_plain_ms': t_enc[plain],
         })
+    big, small = log_mel['times'][262144], log_mel['times'][131072]
+    kernels.append({
+        'name': 'fused_log_mel', 'route': 'cuda',
+        'source': 'transformertts_torch/csrc/fused_log_mel.cu',
+        'replaces': 'transformertts_tpu/ops/stft_pallas.py:41',
+        'launches': featurize['launches'], 'max_abs_err': log_mel['max_abs_err'],
+        'ms': big['ms'], 'plain_ms': big['plain_ms'], 'bound_ms': big['bound_ms'],
+        'bound_by': big['bound_by'], 'library_ms': big['library_ms'],
+        'library': 'torch.stft (cuFFT) + abs + mel matmul + clamp_min().log()',
+        'shape': big['shape'],
+        'half_ms': small['ms'], 'half_plain_ms': small['plain_ms'],
+        'half_library_ms': small['library_ms'], 'half_bound_ms': small['bound_ms'],
+    })
     log(f'training: {train["ms_per_step"]:.2f} ms/step, {train["frames_per_s"]:.1f} trained '
         f'mel frames/s at B32 x 512 frames')
+    log(f'featurization: {featurize["clips_per_s"]:.2f} clips/s, '
+        f'{featurize["audio_s_per_s"]:.2f} s of audio/s')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

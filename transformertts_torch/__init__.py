@@ -1,9 +1,10 @@
 """transformertts_torch: the PyTorch/CUDA port of ``transformertts_tpu``.
 
 It mirrors the JAX package's layout and names and reads and writes the same
-self-describing model dirs. It imports torch and numpy, never jax; of the
-JAX package it uses only the host text frontend (``transformertts_tpu.text``),
-which imports no jax.
+self-describing model dirs, training checkpoints and featurized data dirs.
+It imports torch and numpy, never jax, and nothing of the JAX package: the
+host modules it shares with it (text frontend, data pipeline, logging
+helpers, VAD) are its own copies.
 
     from transformertts_torch.models import ForwardTransformer
     from transformertts_torch.audio import Audio

@@ -2,8 +2,11 @@
 the counterparts of ``transformertts_tpu/audio/spectral.py``: periodic Hann
 window, Slaney mel filterbank (librosa ``htk=False, norm='slaney'``), the
 windowed real-DFT and inverse-DFT bases that turn the STFT and its inverse
-into GEMMs, and ``stft``/``istft`` over batched torch tensors (reflect
-centering, squared-window-normalized overlap-add), as librosa computes them."""
+into GEMMs, ``frame_signal``, ``stft``, ``stft_magnitude`` and
+``mel_spectrogram`` over batched torch tensors (reflect centering or a
+pre-padded signal) and ``istft`` (squared-window-normalized overlap-add), as
+librosa computes them. Float32 GEMMs, with ``1e-30`` inside the magnitude's
+square root as in the JAX package."""
 from functools import lru_cache
 from typing import Tuple
 
@@ -81,16 +84,41 @@ def idft_basis(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
         (-w * np.sin(angles)) / n_fft * window[None, :]
 
 
-def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Waveforms (B, T) → Re and Im of the centered STFT, each
-    (B, 1 + T // hop, 1 + n_fft//2): reflect-padded by n_fft//2, framed,
-    and two GEMMs against the windowed DFT bases."""
+def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int,
+                 center: bool = True) -> torch.Tensor:
+    """(..., T) → (..., 1 + (T' − n_fft) // hop, n_fft) frames, where T' is T
+    plus the reflect padding of n_fft//2 on each side when ``center``."""
+    if center:
+        pad = n_fft // 2
+        y = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad), mode='reflect').reshape(
+            *y.shape[:-1], -1)
+    return y.unfold(-1, n_fft, hop_length)
+
+
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+         center: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Waveforms (..., T) → Re and Im of the STFT, each
+    (..., n_frames, 1 + n_fft//2): framed (reflect-centered when ``center``,
+    1 + T // hop frames) and two GEMMs against the windowed DFT bases."""
     like = dict(dtype=y.dtype, device=y.device)
-    pad = n_fft // 2
-    frames = F.pad(y[:, None, :], (pad, pad), mode='reflect')[:, 0].unfold(-1, n_fft, hop_length)
+    frames = frame_signal(y, n_fft, hop_length, center)
     cos_b, sin_b = (torch.as_tensor(b, **like) for b in dft_basis(n_fft, win_length))
     return frames @ cos_b, frames @ sin_b
+
+
+def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+                   center: bool = True) -> torch.Tensor:
+    re, im = stft(y, n_fft, hop_length, win_length, center)
+    return torch.sqrt(re * re + im * im + 1e-30)
+
+
+def mel_spectrogram(y: torch.Tensor, sampling_rate: int, n_fft: int, hop_length: int,
+                    win_length: int, n_mels: int, f_min: float, f_max: float,
+                    center: bool = True) -> torch.Tensor:
+    """Magnitude mel (power 1), un-normalized: (..., T) → (..., n_frames, n_mels)."""
+    S = stft_magnitude(y, n_fft, hop_length, win_length, center)
+    fb = mel_filterbank(sampling_rate, n_fft, n_mels, f_min, f_max)
+    return S @ torch.as_tensor(fb.T, dtype=S.dtype, device=S.device)
 
 
 def _overlap_add_index(n_frames: int, n_fft: int, hop_length: int) -> np.ndarray:

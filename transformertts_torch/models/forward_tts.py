@@ -26,7 +26,7 @@ from transformertts_torch.models.persistence import (load_model_dir, make_config
                                                      save_model_dir)
 from transformertts_torch.nn import blocks, core, masks
 from transformertts_torch.nn.length_regulator import regulate_length
-from transformertts_tpu.text import TextToTokens
+from transformertts_torch.text import TextToTokens
 
 FRAME_BUCKET = 128  # decode frame budgets are rounded up to multiples of this
 TOKEN_BUCKET = 32   # token rows are padded to multiples of this

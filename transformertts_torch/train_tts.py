@@ -3,9 +3,10 @@
     python -m transformertts_torch.train_tts --config <session.yaml> [--device cuda]
 
 The counterpart of the root ``train_tts.py``, on one device: the bucketed
-TTS dataset over the preprocessed artifacts (the JAX package's host data
-pipeline, which imports no jax), one teacher-forced Adam step a batch with
-the learning rate of the config's schedule, losses logged one step late (so
+TTS dataset over the preprocessed artifacts (``data/datasets.py``, the
+port's copy of the JAX package's host data pipeline), one teacher-forced
+Adam step a batch with the learning rate of the config's schedule, losses
+logged one step late (so
 reading them never waits on the step just queued), target-vs-predicted
 duration histograms per symbol, periodic validation with mel images,
 training checkpoints every ``checkpoint_frequency`` steps in the JAX
@@ -25,14 +26,14 @@ import numpy as np
 import torch
 import tqdm
 
+from transformertts_torch.data.datasets import TTSDataset, TTSPreprocessor
 from transformertts_torch.training import checkpointing
 from transformertts_torch.utils.config import TrainingConfigManager
+from transformertts_torch.utils.decorators import ignore_exception, time_it
+from transformertts_torch.utils.display import mel_png
+from transformertts_torch.utils.logging_utils import SummaryManager
 from transformertts_torch.utils.scheduling import piecewise_linear_schedule
-from transformertts_tpu.data.datasets import TTSDataset, TTSPreprocessor
-from transformertts_tpu.utils.decorators import ignore_exception, time_it
-from transformertts_tpu.utils.display import mel_png
-from transformertts_tpu.utils.logging_utils import SummaryManager
-from transformertts_tpu.utils.scripts_utils import basic_train_parser
+from transformertts_torch.utils.scripts_utils import basic_train_parser
 
 INIT_SEED = 42   # the weights of a fresh run, as the JAX CLI's PRNGKey(42)
 

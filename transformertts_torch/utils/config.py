@@ -1,11 +1,14 @@
-"""YAML training configuration, the counterpart of the TTS half of
+"""YAML training configuration, the counterpart of
 ``transformertts_tpu/utils/config.py`` (which imports jax through its
 scheduling module, so the port keeps its own).
 
-The session YAML's sections are merged into one flat dict; the session
-names key the artifact directories, so the port reads and writes the same
-data, log and weight dirs as the JAX package for the same config. The model
-and trainer come from the merged config; the device is the caller's.
+The session YAML's sections, with the settings of the model kind (``tts``,
+or ``aligner`` with ``aligner=True``), are merged into one flat dict; the
+session names key the artifact directories, so the port reads and writes the
+same data, log and weight dirs as the JAX package for the same config. The
+model and trainer come from the merged config; the device is the caller's.
+The Aligner is not ported yet: its config resolves the directories that
+featurization writes, and ``get_model`` raises for it.
 """
 import shutil
 import subprocess
@@ -14,17 +17,18 @@ from pathlib import Path
 import yaml
 
 CONFIG_SECTIONS = ['paths', 'naming', 'training_data_settings', 'audio_settings',
-                   'text_settings', 'tts_settings']
+                   'text_settings']
 
 
 class TrainingConfigManager:
 
-    def __init__(self, config_path):
+    def __init__(self, config_path, aligner: bool = False):
         self.config_path = Path(config_path)
+        self.model_kind = 'aligner' if aligner else 'tts'
         with open(self.config_path) as f:
             session_config = yaml.safe_load(f)
         self.config = {}
-        for section in CONFIG_SECTIONS:
+        for section in CONFIG_SECTIONS + [f'{self.model_kind}_settings']:
             self.config.update(session_config[section])
         self.git_hash = self._get_git_hash()
         self.data_name = self.config['data_name']
@@ -42,7 +46,7 @@ class TrainingConfigManager:
         self.metadata_path = Path(self.config['metadata_path'])
         self.data_dir = Path(f"{self.config['train_data_directory']}.{self.data_name}")
         self.base_dir = (Path(self.config['log_directory']) / self.data_name
-                         / self.session_names['tts'])
+                         / self.session_names[self.model_kind])
         self.log_dir = self.base_dir / 'logs'
         self.weights_dir = self.base_dir / 'weights'
         self.train_metadata_path = self.data_dir / f'train_metadata.{text_name}.txt'
@@ -62,7 +66,7 @@ class TrainingConfigManager:
             return None
 
     def print_config(self):
-        print(f"\nCONFIGURATION {self.session_names['tts']}")
+        print(f'\nCONFIGURATION {self.session_names[self.model_kind]}')
         for k, v in self.config.items():
             print(f'  - {k} : {v}')
 
@@ -76,6 +80,8 @@ class TrainingConfigManager:
     def get_model(self, device):
         """A ForwardTransformer of this config on ``device``, parameters
         uninitialized."""
+        if self.model_kind == 'aligner':
+            raise NotImplementedError('the Aligner is not ported to transformertts_torch yet')
         from transformertts_torch.models.forward_tts import ForwardTransformer
         stored = self.config.get('git_hash')
         if stored is not None and self.git_hash is not None and stored != self.git_hash:

@@ -17,8 +17,11 @@ prints no result):
 4. training kernels vs plain: K2 (output and logsumexp), K3 (dQ) and K4
    (dK, dV) against ``attention_fwd_lse_plain``/``attention_bwd_plain`` in
    float32 and bfloat16, at dropout 0 and 0.1 with one (seed, offset), on
-   the same kinds of cases and the training shapes, then forward+backward
-   timed against the plain versions at the training shapes;
+   the same kinds of cases and the training shapes (bfloat16 dK and dV also
+   within a relative L2 error of 1e-2 of the plain version in float32),
+   what K4 uses on the card (registers, spill bytes, shared memory and
+   blocks an SM, for each head-width template), then forward+backward timed
+   against the plain versions at the training shapes;
 5. serving slice: the published LJSpeech configuration (d=384, 6+6 blocks,
    2 heads, bfloat16) with weights drawn from a seed, saved as a model dir
    and loaded back; ``synthesize_lines`` over config/test_sentences.txt with
@@ -86,6 +89,7 @@ TRAIN_DECODER_SHAPE = (32, 2, 512, 512, 192)
 BF16_GRAD_TOL = dict(atol=0.12, rtol=0.12)  # the JAX flash backward's bfloat16 bar
 F32_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)   # ... and its float32 bar
 WIRING_REL_L2_BAR = 1e-3
+DKV_REL_L2_BAR = 1e-2  # bf16 dK, dV against the plain version in float32
 LOG_MEL_TOL = dict(atol=2e-4, rtol=1e-3)  # the JAX fused log-mel kernel's bar
 KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'fused_log_mel')
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, float32
@@ -209,9 +213,19 @@ def _qkv(shape, dtype, gen, pad_keys=True):
 
 
 def _time_ms(fn, iters=20) -> float:
+    """Device ms a call: CUDA events around ``iters`` calls, queued behind a
+    spin of the card long enough for the host to queue them all, so that the
+    calls run back to back and a small shape times the device, not the
+    wrappers' Python (a call that waits on the card still times the host)."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # at most 2 GHz: 2e9 cycles a second spin at least that long
+    torch.cuda._sleep(int(2e9 * min(0.2, 2 * iters * host_s + 1e-3)))
     start.record()
     for _ in range(iters):
         fn()
@@ -284,16 +298,22 @@ def _trainable_ops():
                 fa.flash_attention_bwd_dkv)
 
 
+def _rel_l2(mine, want) -> float:
+    return ((mine.float() - want.float()).norm() / want.float().norm()).item()
+
+
 def trainable_kernel_phase() -> dict:
     """K2, K3 and K4 against the plain versions in both dtypes, at dropout 0
-    and 0.1 with one (seed, offset), then forward+backward timed in bfloat16
-    against the plain versions at the training shapes."""
+    and 0.1 with one (seed, offset), what K4 uses on the card, then
+    forward+backward timed in bfloat16 against the plain versions at the
+    training shapes."""
     fa, _ = _trainable_ops()
     gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
     cases = [((2, 2, 37, 53, 24), False), ((2, 2, 41, 41, 24), True),
              ((3, 2, 130, 70, 192), False), ((2, 2, 100, 100, 192), True),
              (TRAIN_ENCODER_SHAPE, False), (TRAIN_DECODER_SHAPE, False)]
     errors = {'K2': 0.0, 'K3': 0.0, 'K4': 0.0}
+    rel_l2 = {'dk': 0.0, 'dv': 0.0}   # bf16 K4 at the decoder's training shape
     for dtype in (torch.float32, torch.bfloat16):
         fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         grad_tol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
@@ -319,13 +339,36 @@ def trainable_kernel_phase() -> dict:
                     torch.testing.assert_close(mine.float(), want.float(), **tol)
                     errors[name] = max(errors[name],
                                        (mine.float() - want.float()).abs().max().item())
+                rel = ''
+                if dtype == torch.bfloat16:
+                    # the plain K4 in float32 from the same bf16 inputs
+                    ref32 = fa.attention_bwd_plain(q.float(), k.float(), v.float(), bias,
+                                                   out.float(), lse, dout.float(), *args)
+                    rels = {'dk': _rel_l2(dk, ref32[1]), 'dv': _rel_l2(dv, ref32[2])}
+                    if not max(rels.values()) < DKV_REL_L2_BAR:
+                        raise AssertionError(f'K4 relative L2 error {rels} at {shape} '
+                                             f'dropout {rate}, bar {DKV_REL_L2_BAR}')
+                    if shape == TRAIN_DECODER_SHAPE:
+                        rel_l2 = {n: max(rel_l2[n], x) for n, x in rels.items()}
+                    rel = (f'; K4 relative L2 vs float32 plain dk {rels["dk"]:.3g} '
+                           f'dv {rels["dv"]:.3g}')
+                    del ref32
                 log(f'{dtype} {shape} causal={causal} dropout={rate}: max |kernel - plain| '
                     f'out {(out.float() - ref_out.float()).abs().max().item():.3g} '
                     f'dq {(dq.float() - ref[0].float()).abs().max().item():.3g} '
                     f'dk {(dk.float() - ref[1].float()).abs().max().item():.3g} '
                     f'dv {(dv.float() - ref[2].float()).abs().max().item():.3g} '
-                    f'(max |plain dq| {ref[0].float().abs().max().item():.3g})')
+                    f'(max |plain dq| {ref[0].float().abs().max().item():.3g}){rel}')
                 del q, k, v, dout, out, lse, dq, dk, dv, ref_out, ref_lse, ref
+    resources = {d: fa.dkv_resources(d) for d in (64, 128, 192, 256)}
+    for d, r in resources.items():
+        log(f'K4 bf16 at D {d}: {r["registers"]} registers a thread, {r["spill_bytes"]} '
+            f'spill (local) bytes, {r["static_smem_bytes"]} + {r["dynamic_smem_bytes"]} B '
+            f'of shared memory a block, {r["blocks_per_sm"]} block(s) of {r["threads"]} '
+            f'threads an SM, {r["query_tile"]}-query tiles')
+    # the design keeps dK and dV in registers at the training head width
+    if resources[192]['spill_bytes'] != 0 or resources[192]['blocks_per_sm'] < 1:
+        raise AssertionError(f'K4 at D 192 spills or does not fit: {resources[192]}')
     record = {}
     for name, shape in (('encoder', TRAIN_ENCODER_SHAPE), ('decoder', TRAIN_DECODER_SHAPE)):
         q, k, v, bias = _qkv(shape, torch.bfloat16, gen)
@@ -374,7 +417,8 @@ def trainable_kernel_phase() -> dict:
         log(f'  bounds: ' + ', '.join(f'{k} {v["bound_ms"]:.4f} ms ({v["bound_by"]})'
                                       for k, v in t['bounds'].items()))
         record[name] = dict(shape=list(shape), **t)
-    return {'errors': errors, 'times': record}
+    return {'errors': errors, 'rel_l2': rel_l2, 'resources': resources[192],
+            'times': record}
 
 
 def _library_training_attention(q, k, v, bias, dout) -> dict:
@@ -847,6 +891,8 @@ def main():
             'shape': t_dec['shape'],
             'encoder_ms': t_enc[label], 'encoder_plain_ms': t_enc[plain],
         })
+    kernels[-1].update({f'rel_l2_{n}': x for n, x in trainable['rel_l2'].items()},
+                       **trainable['resources'])
     big, small = log_mel['times'][262144], log_mel['times'][131072]
     kernels.append({
         'name': 'fused_log_mel', 'route': 'cuda',

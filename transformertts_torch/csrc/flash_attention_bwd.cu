@@ -26,19 +26,48 @@
 //   dV) in VMEM. At the training shapes (T 512-896, D 192, bf16) each is
 //   0.2-0.35 MB, over the 227 KB of shared memory a block has. Since lse is
 //   known, no online rescaling is needed: K3 streams 64-key tiles past a
-//   64-query block, K4 streams 32-query tiles past a 64-key block, and each
+//   64-query block, K4 streams query tiles past a 64-key block, and each
 //   block owns its output rows, so there are no atomics.
-// - K4's accumulators at D = 192 are 2 x 64 x 192 float32 = 96 KB a block,
-//   more than the registers of 4 warps hold beside the score tiles. dV stays
-//   in registers (each warp owns 16 keys: 96 floats a thread at D = 192) and
-//   dK accumulates in shared memory (48 KB), one mma n-tile at a time.
 // - bfloat16 runs all four products on the tensor cores with mma.sync
 //   m16n8k16 (float32 accumulate); P and dS go back to them in bfloat16.
-//   Operands needed transposed (K^T in K3; Q^T and dO^T in K4) are stored
-//   transposed in shared memory as the tiles arrive.
+//   K3 stores K^T in shared memory as the tiles arrive.
 // - float32 runs SIMT kernels on the CUDA cores (TF32 would not hold float32
 //   parity): 256 threads, K3 with 64 queries x 32-key tiles, K4 with 32 keys x
 //   32-query tiles.
+//
+// K4 in bfloat16 (attn_dkv_mma_kernel). At the decoder's training shape,
+// B32 H2 Tq = Tk = 512 D 192, its four products (S, dP, dV, dK) are
+// 25.8 GFLOP against 76 MB of inputs and outputs: bound by operations,
+// 0.0261 ms at 989 TFLOP/s. The first design (32-query tiles, 4 warps)
+// took 0.848 ms, for five reasons; what this design does about each:
+// 1. Four warps an SM: 158,720 B of shared memory a block (K, V, Q, dO,
+//    Q^T, dO^T and dK in float32) let one block of 4 warps onto an SM, and
+//    nothing hid the latency of mma.sync or of the fragment loads. Now a
+//    block runs 8 warps in pairs: warps w and w + 4 share keys 16 (w % 4)
+//    .. + 15; w computes S^T = K Q^T, w + 4 dP^T = V dO^T, each over the
+//    full depth. They swap accumulators through shared memory (a float4 a
+//    lane: each lane stores and loads the same positions, no conflicts),
+//    both form P o M and dS (elementwise work done twice; no product is),
+//    and w accumulates dV and dK for the lower half of the columns, w + 4
+//    for the upper half. 188,416 B a block at D 192: one block of 8 warps.
+// 2. No copy overlapped math. Now the next query tile's Q, dO, (m, log l)
+//    and D arrive by cp.async (16 B, zero-filled outside Tq and D) in a
+//    two-stage ring while the current tile computes: one barrier a tile,
+//    plus one 64-thread barrier a pair for the swap.
+// 3. Q^T and dO^T were written to shared memory 2 bytes at a time for the
+//    B operands. Now ldmatrix.x4 loads every operand from the row-major
+//    tiles, and ldmatrix.x4.trans gives Q and dO as the B operands of
+//    dK += dS^T Q and dV += (P o M)^T dO; the rows keep their 8-element
+//    pad, so the 8 rows of an ldmatrix fall in different banks.
+// 4. dK was read and rewritten in shared memory on every tile. Now dK and
+//    dV stay in registers: 2 x 12 n-tiles, 96 floats a thread at D 192.
+// 5. 32-query tiles gave the output products 2 k-steps a tile. Now a tile
+//    has 64 queries (4 k-steps), and the dropout row hash is computed once
+//    a query row a tile, beside (m, log l) and D, not once an element.
+// The query tile is 64 up to D = 192, picked by measurement: on an H100
+// 80GB HBM3 at 700 W, 0.316 ms at the decoder's training shape (dropout
+// 0.1) against 0.329 ms with 32-query tiles, which still leave one block an
+// SM. At D > 192 it is 32, since 64 would need 237,568 B of shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -81,11 +110,10 @@ __device__ __forceinline__ float2 row_lse_at(const float* lse, long long i) {
 // bfloat16: tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;   // 4 warps x 16 rows
+constexpr int MMA_THREADS = 128;   // K3: 4 warps x 16 rows
 constexpr int TILE = 64;           // K3: queries a block and keys a tile; K4: keys a block
-constexpr int QTILE = 32;          // K4: queries a tile
-constexpr int T64_STRIDE = TILE + 8;    // row strides of transposed tiles (bf16);
-constexpr int T32_STRIDE = QTILE + 8;   // the pad keeps fragment loads conflict free
+constexpr int T64_STRIDE = TILE + 8;    // row stride of K3's K^T (bf16); the pad
+                                        // keeps fragment loads conflict free
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
     return *reinterpret_cast<const uint32_t*>(p);
@@ -264,19 +292,89 @@ attn_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-size_t dkv_mma_smem_bytes(int d) {
-    int dp = (d + 15) / 16 * 16;
-    // K, V [64][dp + 8]; Q, dO [32][dp + 8]; Q^T, dO^T [dp][40] (bf16);
-    // dK [64][dp + 8], lse [32][2] and D [32] (float32)
-    return ((size_t)2 * TILE * (dp + 8) + (size_t)2 * QTILE * (dp + 8)
-            + (size_t)2 * dp * T32_STRIDE) * sizeof(__nv_bfloat16)
-        + ((size_t)TILE * (dp + 8) + 3 * QTILE) * sizeof(float);
+// ---------------------------------------------------------------------------
+// K4, bfloat16: 8 warps in pairs, dK and dV in registers, ldmatrix operands,
+// a two-stage cp.async ring of query tiles (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int DKV_THREADS = 256;   // 4 pairs of warps, 16 keys a pair
+
+// queries a tile (see the note at the top)
+__host__ __device__ constexpr int dkv_qtile(int d) { return d > 192 ? 32 : 64; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// K4: grid (B*H, ceil(Tk / 64)); warp w owns key rows k0 + 16 w .. + 15. The
-// score tiles are transposed (keys x queries): S^T = K Q^T, dP^T = V dO^T.
+// four 8 x 8 bf16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, and register i receives it in mma fragment order
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const __nv_bfloat16* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// cp.async of 16, 8 or 4 bytes; with valid false the destination is zeroed
+// and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the 64 threads of warps w and w + 4 (barrier 0 is __syncthreads')
+__device__ __forceinline__ void pair_sync(int pair) {
+    asm volatile("bar.sync %0, 64;\n" :: "r"(pair + 1) : "memory");
+}
+
+// Rows [r0, r0 + n) of a (T, D) bf16 matrix into a row-major [n][rs] tile by
+// 16-byte cp.async, zero outside rows < T and columns < D (up to DP).
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst, int rs,
+                                              const __nv_bfloat16* src, int r0, int n,
+                                              int T, int D, int DP) {
+    const int C8 = DP / 8;
+    for (int idx = threadIdx.x; idx < n * C8; idx += DKV_THREADS) {
+        int r = idx / C8, c = (idx - r * C8) * 8;
+        bool in = r0 + r < T && c < D;
+        cp_async16(dst + r * rs + c, in ? src + (long long)(r0 + r) * D + c : src, in);
+    }
+}
+
+size_t dkv_mma_smem_bytes(int d) {
+    size_t rs = (d + 15) / 16 * 16 + 8, bq = dkv_qtile(d);
+    // bf16 K, V [64][rs] and a ring of 2 x (Q, dO) [bq][rs]; the swap buffer,
+    // float4 [8 warps][bq / 8][32 lanes]; a ring of 2 x (m, log l), D and
+    // the dropout row hash [bq]
+    return (2 * TILE + 4 * bq) * rs * sizeof(__nv_bfloat16)
+        + 8 * (bq / 8) * 32 * sizeof(float4) + 2 * bq * (sizeof(float2) + 8);
+}
+
+// K4: grid (B*H, ceil(Tk / 64)), 8 warps. Warps w and w + 4 own key rows
+// k0 + 16 (w % 4) .. + 15; the score tiles are transposed (keys x queries).
 template <int DMAX>
-__global__ void __launch_bounds__(MMA_THREADS)
+__global__ void __launch_bounds__(DKV_THREADS, 1)
 attn_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -285,114 +383,157 @@ attn_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ lse, const float* __restrict__ dsum,
                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                     int H, int Tq, int Tk, int D, int causal, float scale, Drop drop) {
-    constexpr int NT = DMAX / 8;
-    constexpr int SN = QTILE / 8;          // score n-tiles a warp
+    constexpr int BQ = dkv_qtile(DMAX);
+    constexpr int SN = BQ / 8;        // score n-tiles of 8 queries
+    constexpr int KS = BQ / 16;       // k-steps of the output products
+    constexpr int NH = DMAX / 16;     // output n-tiles a warp: half the columns
     const int DP = (D + 15) / 16 * 16;
     const int RS = DP + 8;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][RS]
     __nv_bfloat16* vs = ks + TILE * RS;                                 // [64][RS]
-    __nv_bfloat16* qs = vs + TILE * RS;                                 // [32][RS]
-    __nv_bfloat16* dos = qs + QTILE * RS;                               // [32][RS]
-    __nv_bfloat16* qt = dos + QTILE * RS;                               // [DP][40]
-    __nv_bfloat16* dot = qt + DP * T32_STRIDE;                          // [DP][40]
-    float* dks = reinterpret_cast<float*>(dot + DP * T32_STRIDE);       // [64][RS]
-    float2* lse_s = reinterpret_cast<float2*>(dks + TILE * RS);         // [32]
-    float* d_s = reinterpret_cast<float*>(lse_s + QTILE);               // [32]
+    __nv_bfloat16* ring = vs + TILE * RS;          // [2 stages][Q, dO][BQ][RS]
+    float4* xch = reinterpret_cast<float4*>(ring + 4 * BQ * RS);   // [8][SN][32]
+    float2* lse_s = reinterpret_cast<float2*>(xch + 8 * SN * 32);  // [2][BQ]
+    float* d_s = reinterpret_cast<float*>(lse_s + 2 * BQ);         // [2][BQ]
+    uint32_t* hr_s = reinterpret_cast<uint32_t*>(d_s + 2 * BQ);    // [2][BQ]
 
     const int tid = threadIdx.x;
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
+    const int pair = warp % 4, half = warp / 4;
     const int bh = blockIdx.x, b = bh / H;
     const int kb0 = blockIdx.y * TILE;
     const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
+    const float* lse_b = lse + (long long)bh * Tq * 2;
+    const float* dsum_b = dsum + (long long)bh * Tq;
+    const bool dropping = drop.thr != 0u;
+    const uint32_t hb = dropping ? dropout_bh_hash(drop.key, bh) : 0u;
 
-    load_tile(k + koff, kb0, TILE, Tk, D, DP, ks, RS, nullptr, 0);
-    load_tile(v + koff, kb0, TILE, Tk, D, DP, vs, RS, nullptr, 0);
-    for (int idx = tid; idx < TILE * RS; idx += MMA_THREADS) dks[idx] = 0.f;
+    // one query tile into ring stage st: Q, dO, (m, log l) and D by
+    // cp.async, the dropout row hashes by plain stores; one commit group
+    auto load_stage = [&](int st, int q0) {
+        cp_async_rows(ring + 2 * st * BQ * RS, RS, q + qoff, q0, BQ, Tq, D, DP);
+        cp_async_rows(ring + (2 * st + 1) * BQ * RS, RS, dout + qoff, q0, BQ, Tq, D, DP);
+        if (tid < BQ) {
+            int row = q0 + tid;
+            bool in = row < Tq;
+            cp_async8(lse_s + st * BQ + tid, in ? lse_b + 2 * row : lse_b, in);
+            cp_async4(d_s + st * BQ + tid, in ? dsum_b + row : dsum_b, in);
+            hr_s[st * BQ + tid] = dropping ? dropout_row_hash(hb, row) : 0u;
+        }
+        cp_async_commit();
+    };
+    cp_async_rows(ks, RS, k + koff, kb0, TILE, Tk, D, DP);
+    cp_async_rows(vs, RS, v + koff, kb0, TILE, Tk, D, DP);
+    load_stage(0, 0);   // one group with K and V
 
-    const int key0 = kb0 + warp * 16 + g;   // keys key0 and key0 + 8
+    const int key0 = kb0 + pair * 16 + g;   // keys key0 and key0 + 8
     float key_bias[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
         key_bias[h] = key0 + 8 * h < Tk ? bias[(long long)b * Tk + key0 + 8 * h] : 0.f;
-    const bool dropping = drop.thr != 0u;
-    const uint32_t hb = dropping ? dropout_bh_hash(drop.key, bh) : 0u;
 
-    float acc_v[NT][4];
+    // this warp's output columns: n-tiles [nb, nb + cnt) of the D / 8
+    const int nd = D / 8, nlow = (nd + 1) / 2;
+    const int nb = half ? nlow : 0, cnt = half ? nd - nlow : nlow;
+    float acc_v[NH][4], acc_k[NH][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
-    float* dkw = dks + (warp * 16 + g) * RS + 2 * t;
+    for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_v[n][e] = acc_k[n][e] = 0.f;
 
-    for (int q0 = 0; q0 < Tq; q0 += QTILE) {
-        __syncthreads();   // the previous tile's reads are done
-        load_tile(q + qoff, q0, QTILE, Tq, D, DP, qs, RS, qt, T32_STRIDE);
-        load_tile(dout + qoff, q0, QTILE, Tq, D, DP, dos, RS, dot, T32_STRIDE);
-        if (tid < QTILE) {
-            bool in = q0 + tid < Tq;
-            lse_s[tid] = in ? row_lse_at(lse, (long long)bh * Tq + q0 + tid)
-                            : make_float2(0.f, 0.f);
-            d_s[tid] = in ? dsum[(long long)bh * Tq + q0 + tid] : 0.f;
+    // ldmatrix lane offsets: A rows (this pair's 16 keys of K or V); B of
+    // the score product, n-tiles np and np + 1 (rows of Q or dO); B of the
+    // output products, transposed, k-step rows and n-tiles j and j + 1
+    const __nv_bfloat16* a_src = (half ? vs : ks) + (pair * 16 + lane % 16) * RS
+                                 + (lane / 16) * 8;
+    const int b_off = ((lane / 16) * 8 + lane % 8) * RS + ((lane / 8) % 2) * 8;
+    const int t_off = (((lane / 8) % 2) * 8 + lane % 8) * RS + (lane / 16) * 8 + nb * 8;
+    float4* swap_out = xch + warp * SN * 32 + lane;
+    const float4* swap_in = xch + (warp ^ 4) * SN * 32 + lane;
+
+    for (int it = 0, q0 = 0; q0 < Tq; ++it, q0 += BQ) {
+        const int st = it & 1;
+        cp_async_wait_all();
+        __syncthreads();   // stage st landed for all; stage st ^ 1 is free
+        if (q0 + BQ < Tq) load_stage(st ^ 1, q0 + BQ);
+        const __nv_bfloat16* qs = ring + 2 * st * BQ * RS;
+        const __nv_bfloat16* dos = qs + BQ * RS;
+
+        // S^T = K Q^T (w < 4) or dP^T = V dO^T (w >= 4) for 16 keys x BQ
+        float mine[SN][4];
+#pragma unroll
+        for (int n = 0; n < SN; ++n) mine[n][0] = mine[n][1] = mine[n][2] = mine[n][3] = 0.f;
+        const __nv_bfloat16* b_src = (half ? dos : qs) + b_off;
+        for (int kd = 0; kd < DP; kd += 16) {
+            uint32_t a[4];
+            ldsm_x4(a, a_src + kd);
+#pragma unroll
+            for (int np = 0; np < SN; np += 2) {
+                uint32_t bb[4];
+                ldsm_x4(bb, b_src + np * 8 * RS + kd);
+                mma_bf16(mine[np], a[0], a[1], a[2], a[3], bb[0], bb[1]);
+                mma_bf16(mine[np + 1], a[0], a[1], a[2], a[3], bb[2], bb[3]);
+            }
         }
-        __syncthreads();
-
-        float s[SN][4], dp[SN][4];
-        scores<SN>(s, ks + warp * 16 * RS, qs, RS, DP, g, t);
-        scores<SN>(dp, vs + warp * 16 * RS, dos, RS, DP, g, t);
-        float pd[SN][4];   // P o M, then s holds dS
+        // swap with the partner warp: both then hold S^T and dP^T
+#pragma unroll
+        for (int n = 0; n < SN; ++n)
+            swap_out[n * 32] = make_float4(mine[n][0], mine[n][1], mine[n][2], mine[n][3]);
+        pair_sync(pair);
+        uint32_t pa[KS][4], sa[KS][4];   // A fragments of P o M and of dS
 #pragma unroll
         for (int n = 0; n < SN; ++n) {
+            const float4 o4 = swap_in[n * 32];
+            const float other[4] = {o4.x, o4.y, o4.z, o4.w};
+            float pd[4], ds[4];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                int h = e >> 1, qi = n * 8 + 2 * t + (e & 1);
-                int row = q0 + qi, col = key0 + 8 * h;
-                float p = recompute_p(s[n][e], scale, key_bias[h], row, col, Tq, Tk,
-                                      causal, lse_s[qi]);
-                float m = 1.f;
-                if (dropping)
-                    m = dropout_keep(dropout_row_hash(hb, row), col, drop.thr)
-                        ? drop.keep_scale : 0.f;
-                pd[n][e] = p * m;
-                s[n][e] = recompute_ds(p, dp[n][e] * m, d_s[qi], row, col, causal);
-            }
-        }
-        // dV += (P o M)^T dO and dK += dS^T Q: the (keys x queries) score
-        // accumulators are the A fragments; dO^T and Q^T give the B fragments
+            for (int j = 0; j < 2; ++j) {
+                const int qi = n * 8 + 2 * t + j, row = q0 + qi;
+                const float2 rl = lse_s[st * BQ + qi];
+                const float rd = d_s[st * BQ + qi];
+                const uint32_t hr = dropping ? hr_s[st * BQ + qi] : 0u;
 #pragma unroll
-        for (int kk = 0; kk < QTILE / 16; ++kk) {
-            uint32_t p0 = pack_bf16(pd[2 * kk][0], pd[2 * kk][1]);
-            uint32_t p1 = pack_bf16(pd[2 * kk][2], pd[2 * kk][3]);
-            uint32_t p2 = pack_bf16(pd[2 * kk + 1][0], pd[2 * kk + 1][1]);
-            uint32_t p3 = pack_bf16(pd[2 * kk + 1][2], pd[2 * kk + 1][3]);
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-                if (n * 8 < D) {
-                    const __nv_bfloat16* bp = dot + (n * 8 + g) * T32_STRIDE + kk * 16 + 2 * t;
-                    mma_bf16(acc_v[n], p0, p1, p2, p3, ld32(bp), ld32(bp + 8));
+                for (int h = 0; h < 2; ++h) {
+                    const int e = 2 * h + j, key = key0 + 8 * h;
+                    const float s = half ? other[e] : mine[n][e];
+                    const float dp = half ? mine[n][e] : other[e];
+                    float p = recompute_p(s, scale, key_bias[h], row, key, Tq, Tk, causal, rl);
+                    float m = 1.f;
+                    if (dropping) m = dropout_keep(hr, key, drop.thr) ? drop.keep_scale : 0.f;
+                    pd[e] = p * m;
+                    ds[e] = recompute_ds(p, dp * m, rd, row, key, causal);
                 }
             }
+            // accumulator n-tiles 2kk, 2kk + 1 are the A fragment of k-step kk
+            pa[n / 2][(n % 2) * 2] = pack_bf16(pd[0], pd[1]);
+            pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(pd[2], pd[3]);
+            sa[n / 2][(n % 2) * 2] = pack_bf16(ds[0], ds[1]);
+            sa[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
         }
-        uint32_t a[QTILE / 16][4];
+
+        // dV += (P o M)^T dO and dK += dS^T Q over this warp's columns
 #pragma unroll
-        for (int kk = 0; kk < QTILE / 16; ++kk) {
-            a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-            a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-            a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        }
-        for (int n = 0; n * 8 < D; ++n) {
-            float c[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int kk = 0; kk < KS; ++kk) {
+            const __nv_bfloat16* dot = dos + kk * 16 * RS + t_off;
+            const __nv_bfloat16* qt = qs + kk * 16 * RS + t_off;
 #pragma unroll
-            for (int kk = 0; kk < QTILE / 16; ++kk) {
-                const __nv_bfloat16* bp = qt + (n * 8 + g) * T32_STRIDE + kk * 16 + 2 * t;
-                mma_bf16(c, a[kk][0], a[kk][1], a[kk][2], a[kk][3], ld32(bp), ld32(bp + 8));
+            for (int j = 0; j < NH; j += 2) {
+                if (j < cnt) {
+                    uint32_t bb[4];
+                    ldsm_x4_trans(bb, dot + j * 8);
+                    mma_bf16(acc_v[j], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3], bb[0], bb[1]);
+                    if (j + 1 < cnt)
+                        mma_bf16(acc_v[j + 1], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3],
+                                 bb[2], bb[3]);
+                    ldsm_x4_trans(bb, qt + j * 8);
+                    mma_bf16(acc_k[j], sa[kk][0], sa[kk][1], sa[kk][2], sa[kk][3], bb[0], bb[1]);
+                    if (j + 1 < cnt)
+                        mma_bf16(acc_k[j + 1], sa[kk][0], sa[kk][1], sa[kk][2], sa[kk][3],
+                                 bb[2], bb[3]);
+                }
             }
-            // this warp's own rows: no other warp touches them
-            float2* r0 = reinterpret_cast<float2*>(dkw + n * 8);
-            float2* r1 = reinterpret_cast<float2*>(dkw + 8 * RS + n * 8);
-            float2 x0 = *r0, x1 = *r1;
-            x0.x += c[0]; x0.y += c[1]; x1.x += c[2]; x1.y += c[3];
-            *r0 = x0; *r1 = x1;
         }
     }
 
@@ -403,14 +544,13 @@ attn_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         int key = key0 + 8 * h;
         if (key >= Tk) continue;
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            int col = n * 8 + 2 * t;
-            if (col < D) {
-                const float* src = dkw + 8 * h * RS + n * 8;
-                *reinterpret_cast<__nv_bfloat162*>(dkb + (long long)key * D + col) =
-                    __floats2bfloat162_rn(src[0] * scale, src[1] * scale);
-                *reinterpret_cast<__nv_bfloat162*>(dvb + (long long)key * D + col) =
-                    __floats2bfloat162_rn(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+        for (int j = 0; j < NH; ++j) {
+            if (j < cnt) {
+                long long at = (long long)key * D + (nb + j) * 8 + 2 * t;
+                *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
+                    __floats2bfloat162_rn(acc_k[j][2 * h] * scale, acc_k[j][2 * h + 1] * scale);
+                *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
+                    __floats2bfloat162_rn(acc_v[j][2 * h], acc_v[j][2 * h + 1]);
             }
         }
     }
@@ -695,6 +835,29 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t bytes, cudaStream_t str
     return (int)cudaGetLastError();
 }
 
+// What the bf16 K4 kernel for head width D uses, as the card reports it:
+// out = {registers a thread, local (spill) bytes a thread, static and
+// dynamic shared memory a block, blocks an SM, threads a block, queries a
+// tile}.
+template <int DMAX>
+int dkv_mma_resources(int D, int* out) {
+    auto kernel = attn_dkv_mma_kernel<DMAX>;
+    int bytes = (int)dkv_mma_smem_bytes(D), blocks = 0;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, DKV_THREADS,
+                                                            bytes);
+    if (err != cudaSuccess) return (int)err;
+    const int values[7] = {attr.numRegs, (int)attr.localSizeBytes,
+                           (int)attr.sharedSizeBytes, bytes, blocks, DKV_THREADS,
+                           dkv_qtile(D)};
+    for (int i = 0; i < 7; ++i) out[i] = values[i];
+    return 0;
+}
+
 bool bad_shape(int B, int H, int Tq, int Tk, int D) {
     return B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 8 || D > 256 || D % 8 != 0
         || (Tq + 63) / 64 > 65535 || (Tk + 31) / 32 > 65535;
@@ -760,9 +923,19 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     if (dtype == 1) {
         using T = __nv_bfloat16;
         return DISPATCH_D(attn_dkv_mma_kernel, T, dim3(B * H, (Tk + 63) / 64),
-                          MMA_THREADS, dkv_mma_smem_bytes(D), s, (const T*)q,
+                          DKV_THREADS, dkv_mma_smem_bytes(D), s, (const T*)q,
                           (const T*)k, (const T*)v, bias, (const T*)dout, lse, dsum,
                           (T*)dk, (T*)dv, H, Tq, Tk, D, causal, scale, drop);
     }
     return -1;
+}
+
+// K4's resources at head width D (see dkv_mma_resources): 0, a cudaError_t,
+// or -1 for a width the kernels do not take.
+extern "C" int flash_attention_bwd_dkv_resources(int D, int* out) {
+    if (D < 8 || D > 256 || D % 8 != 0) return -1;
+    return D <= 64 ? dkv_mma_resources<64>(D, out)
+         : D <= 128 ? dkv_mma_resources<128>(D, out)
+         : D <= 192 ? dkv_mma_resources<192>(D, out)
+                    : dkv_mma_resources<256>(D, out);
 }

@@ -360,6 +360,24 @@ flash_attention_fwd_lse.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
+DKV_RESOURCES = ('registers', 'spill_bytes', 'static_smem_bytes', 'dynamic_smem_bytes',
+                 'blocks_per_sm', 'threads', 'query_tile')
+
+
+def dkv_resources(d: int) -> dict:
+    """What the bfloat16 K4 kernel for head width ``d`` uses on the card, as
+    ``cudaFuncGetAttributes`` and the occupancy calculator report it (spill
+    bytes are its local memory a thread), keyed by ``DKV_RESOURCES``."""
+    from transformertts_torch.ops import build
+    fn = build.load('flash_attention_bwd').flash_attention_bwd_dkv_resources
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(DKV_RESOURCES))()
+    err = fn(d, out)
+    if err != 0:
+        raise RuntimeError(f'flash_attention_bwd_dkv_resources({d}) failed: error {err}')
+    return dict(zip(DKV_RESOURCES, out))
+
 
 class _FlashAttention(torch.autograd.Function):
 

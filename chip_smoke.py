@@ -17,9 +17,9 @@ prints no result):
 4. training kernels vs plain: K2 (output and logsumexp), K3 (dQ) and K4
    (dK, dV) against ``attention_fwd_lse_plain``/``attention_bwd_plain`` in
    float32 and bfloat16, at dropout 0 and 0.1 with one (seed, offset), on
-   the same kinds of cases and the training shapes (bfloat16 dK and dV also
-   within a relative L2 error of 1e-2 of the plain version in float32),
-   what K4 uses on the card (registers, spill bytes, shared memory and
+   the same kinds of cases and the training shapes (bfloat16 dQ, dK and dV
+   also within a relative L2 error of 1e-2 of the plain version in float32),
+   what K3 and K4 use on the card (registers, spill bytes, shared memory and
    blocks an SM, for each head-width template), then forward+backward timed
    against the plain versions at the training shapes;
 5. serving slice: the published LJSpeech configuration (d=384, 6+6 blocks,
@@ -89,7 +89,7 @@ TRAIN_DECODER_SHAPE = (32, 2, 512, 512, 192)
 BF16_GRAD_TOL = dict(atol=0.12, rtol=0.12)  # the JAX flash backward's bfloat16 bar
 F32_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)   # ... and its float32 bar
 WIRING_REL_L2_BAR = 1e-3
-DKV_REL_L2_BAR = 1e-2  # bf16 dK, dV against the plain version in float32
+GRAD_REL_L2_BAR = 1e-2  # bf16 dQ, dK, dV against the plain version in float32
 LOG_MEL_TOL = dict(atol=2e-4, rtol=1e-3)  # the JAX fused log-mel kernel's bar
 KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'fused_log_mel')
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, float32
@@ -304,7 +304,7 @@ def _rel_l2(mine, want) -> float:
 
 def trainable_kernel_phase() -> dict:
     """K2, K3 and K4 against the plain versions in both dtypes, at dropout 0
-    and 0.1 with one (seed, offset), what K4 uses on the card, then
+    and 0.1 with one (seed, offset), what K3 and K4 use on the card, then
     forward+backward timed in bfloat16 against the plain versions at the
     training shapes."""
     fa, _ = _trainable_ops()
@@ -313,7 +313,7 @@ def trainable_kernel_phase() -> dict:
              ((3, 2, 130, 70, 192), False), ((2, 2, 100, 100, 192), True),
              (TRAIN_ENCODER_SHAPE, False), (TRAIN_DECODER_SHAPE, False)]
     errors = {'K2': 0.0, 'K3': 0.0, 'K4': 0.0}
-    rel_l2 = {'dk': 0.0, 'dv': 0.0}   # bf16 K4 at the decoder's training shape
+    rel_l2 = {'dq': 0.0, 'dk': 0.0, 'dv': 0.0}   # bf16, the decoder's training shape
     for dtype in (torch.float32, torch.bfloat16):
         fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         grad_tol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
@@ -341,17 +341,18 @@ def trainable_kernel_phase() -> dict:
                                        (mine.float() - want.float()).abs().max().item())
                 rel = ''
                 if dtype == torch.bfloat16:
-                    # the plain K4 in float32 from the same bf16 inputs
+                    # the plain K3 and K4 in float32 from the same bf16 inputs
                     ref32 = fa.attention_bwd_plain(q.float(), k.float(), v.float(), bias,
                                                    out.float(), lse, dout.float(), *args)
-                    rels = {'dk': _rel_l2(dk, ref32[1]), 'dv': _rel_l2(dv, ref32[2])}
-                    if not max(rels.values()) < DKV_REL_L2_BAR:
-                        raise AssertionError(f'K4 relative L2 error {rels} at {shape} '
-                                             f'dropout {rate}, bar {DKV_REL_L2_BAR}')
+                    rels = {n: _rel_l2(g, r) for n, g, r in zip(('dq', 'dk', 'dv'),
+                                                                 (dq, dk, dv), ref32)}
+                    if not max(rels.values()) < GRAD_REL_L2_BAR:
+                        raise AssertionError(f'K3/K4 relative L2 error {rels} at {shape} '
+                                             f'dropout {rate}, bar {GRAD_REL_L2_BAR}')
                     if shape == TRAIN_DECODER_SHAPE:
                         rel_l2 = {n: max(rel_l2[n], x) for n, x in rels.items()}
-                    rel = (f'; K4 relative L2 vs float32 plain dk {rels["dk"]:.3g} '
-                           f'dv {rels["dv"]:.3g}')
+                    rel = '; relative L2 vs float32 plain ' + ' '.join(
+                        f'{n} {x:.3g}' for n, x in rels.items())
                     del ref32
                 log(f'{dtype} {shape} causal={causal} dropout={rate}: max |kernel - plain| '
                     f'out {(out.float() - ref_out.float()).abs().max().item():.3g} '
@@ -360,15 +361,20 @@ def trainable_kernel_phase() -> dict:
                     f'dv {(dv.float() - ref[2].float()).abs().max().item():.3g} '
                     f'(max |plain dq| {ref[0].float().abs().max().item():.3g}){rel}')
                 del q, k, v, dout, out, lse, dq, dk, dv, ref_out, ref_lse, ref
-    resources = {d: fa.dkv_resources(d) for d in (64, 128, 192, 256)}
-    for d, r in resources.items():
-        log(f'K4 bf16 at D {d}: {r["registers"]} registers a thread, {r["spill_bytes"]} '
-            f'spill (local) bytes, {r["static_smem_bytes"]} + {r["dynamic_smem_bytes"]} B '
-            f'of shared memory a block, {r["blocks_per_sm"]} block(s) of {r["threads"]} '
-            f'threads an SM, {r["query_tile"]}-query tiles')
-    # the design keeps dK and dV in registers at the training head width
-    if resources[192]['spill_bytes'] != 0 or resources[192]['blocks_per_sm'] < 1:
-        raise AssertionError(f'K4 at D 192 spills or does not fit: {resources[192]}')
+    resources = {}
+    for label, query, tile in (('K3', fa.dq_resources, 'key_tile'),
+                               ('K4', fa.dkv_resources, 'query_tile')):
+        by_d = {d: query(d) for d in (64, 128, 192, 256)}
+        for d, r in by_d.items():
+            log(f'{label} bf16 at D {d}: {r["registers"]} registers a thread, '
+                f'{r["spill_bytes"]} spill (local) bytes, {r["static_smem_bytes"]} + '
+                f'{r["dynamic_smem_bytes"]} B of shared memory a block, {r["blocks_per_sm"]} '
+                f'block(s) of {r["threads"]} threads an SM, {tile.replace("_", " ")} {r[tile]}')
+        # the designs keep their accumulators in registers at the training
+        # head width, with a block of 8 warps on an SM
+        if by_d[192]['spill_bytes'] != 0 or by_d[192]['blocks_per_sm'] < 1:
+            raise AssertionError(f'{label} at D 192 spills or does not fit: {by_d[192]}')
+        resources[label] = by_d[192]
     record = {}
     for name, shape in (('encoder', TRAIN_ENCODER_SHAPE), ('decoder', TRAIN_DECODER_SHAPE)):
         q, k, v, bias = _qkv(shape, torch.bfloat16, gen)
@@ -417,8 +423,7 @@ def trainable_kernel_phase() -> dict:
         log(f'  bounds: ' + ', '.join(f'{k} {v["bound_ms"]:.4f} ms ({v["bound_by"]})'
                                       for k, v in t['bounds'].items()))
         record[name] = dict(shape=list(shape), **t)
-    return {'errors': errors, 'rel_l2': rel_l2, 'resources': resources[192],
-            'times': record}
+    return {'errors': errors, 'rel_l2': rel_l2, 'resources': resources, 'times': record}
 
 
 def _library_training_attention(q, k, v, bias, dout) -> dict:
@@ -488,13 +493,14 @@ def slice_phase() -> dict:
         tok = _batch_like_serving(model, lines)
         use = model.scaled_durations(model.encode(torch.as_tensor(tok, device=DEVICE)), 1.0)
         totals = torch.round(use).sum(dim=1).long().cpu().numpy() + 1
-    expected = sorted(int(t - 1) * audio.hop_length for t in totals[:len(lines)])
+    # each wav keeps at least one frame
+    expected = sorted(max(1, int(t - 1)) * audio.hop_length for t in totals[:len(lines)])
     lengths = [len(w) for w in wavs]
     for w in wavs:
         if not np.isfinite(w).all() or not np.abs(w).max() > 0:
             raise AssertionError('a synthesized wav is not finite or is silent')
     if sorted(lengths) != expected:
-        raise AssertionError(f'wav lengths {lengths} != (totals-1)*hop {expected}')
+        raise AssertionError(f'wav lengths {lengths} != max(1, totals-1)*hop {expected}')
     log(f'synthesize_lines: {len(lines)} lines, wav samples {lengths}, kernel '
         f'launches {launches}, {wall:.4f} s, {len(lines) / wall:.3f} sentences/s')
 
@@ -891,8 +897,10 @@ def main():
             'shape': t_dec['shape'],
             'encoder_ms': t_enc[label], 'encoder_plain_ms': t_enc[plain],
         })
-    kernels[-1].update({f'rel_l2_{n}': x for n, x in trainable['rel_l2'].items()},
-                       **trainable['resources'])
+    rel_l2 = trainable['rel_l2']
+    kernels[-2].update(rel_l2_dq=rel_l2['dq'], **trainable['resources']['K3'])
+    kernels[-1].update(rel_l2_dk=rel_l2['dk'], rel_l2_dv=rel_l2['dv'],
+                       **trainable['resources']['K4'])
     big, small = log_mel['times'][262144], log_mel['times'][131072]
     kernels.append({
         'name': 'fused_log_mel', 'route': 'cuda',

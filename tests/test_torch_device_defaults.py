@@ -1,0 +1,65 @@
+"""The port's entry points run on the card unless the caller names another
+device. Without a card, a call that names none raises: it never falls back
+to the CPU. With ``device='cpu'`` each runs here, as the other CPU tests
+call them.
+"""
+import numpy as np
+import pytest
+import torch
+
+from test_torch_nn import TINY_CONFIG
+from transformertts_torch.audio import Audio
+from transformertts_torch.audio.pitch import extract_pitch_np
+from transformertts_torch.models.forward_tts import ForwardTransformer
+from transformertts_torch.models.persistence import load_model_dir
+
+torch.set_num_threads(1)
+
+AUDIO = Audio.from_config(TINY_CONFIG)
+WAV = (0.1 * np.random.default_rng(0).standard_normal(4096)).astype(np.float32)
+MEL = np.full((12, TINY_CONFIG['mel_channels']), -4.0, np.float32)
+
+# entry point -> call(model_dir, **device)
+ENTRY_POINTS = {
+    'ForwardTransformer.load_model': lambda d, **dev: ForwardTransformer.load_model(d, **dev),
+    'ForwardTransformer.from_config': lambda d, **dev: ForwardTransformer.from_config(
+        TINY_CONFIG, **dev),
+    'persistence.load_model_dir': lambda d, **dev: load_model_dir(ForwardTransformer, d,
+                                                                  **dev),
+    'Audio.mel_spectrogram': lambda d, **dev: AUDIO.mel_spectrogram(WAV, **dev),
+    'Audio.extract_pitch': lambda d, **dev: AUDIO.extract_pitch(WAV, **dev),
+    'Audio.reconstruct_waveform': lambda d, **dev: AUDIO.reconstruct_waveform(
+        MEL, n_iter=1, **dev),
+    'pitch.extract_pitch_np': lambda d, **dev: extract_pitch_np(
+        WAV, AUDIO.sampling_rate, AUDIO.hop_length, **dev),
+}
+
+
+@pytest.fixture
+def model_dir(tmp_path):
+    ForwardTransformer(**TINY_CONFIG).init_params(
+        torch.Generator().manual_seed(0)).save_model(tmp_path)
+    return tmp_path
+
+
+@pytest.mark.parametrize('entry', sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(entry, model_dir):
+    call = ENTRY_POINTS[entry]
+    if not torch.cuda.is_available():
+        # a CPU-only torch raises AssertionError, a CUDA build without a card
+        # RuntimeError; neither returns results computed on the CPU
+        with pytest.raises((AssertionError, RuntimeError)):
+            call(model_dir)
+        return
+    out = call(model_dir)
+    if isinstance(out, torch.nn.Module):
+        assert out.device.type == 'cuda'
+
+
+@pytest.mark.parametrize('entry', sorted(ENTRY_POINTS))
+def test_entry_point_runs_on_the_cpu_when_asked(entry, model_dir):
+    out = ENTRY_POINTS[entry](model_dir, device='cpu')
+    if isinstance(out, torch.nn.Module):
+        assert out.device.type == 'cpu'
+    else:
+        assert isinstance(out, np.ndarray) and out.size > 0 and np.isfinite(out).all()

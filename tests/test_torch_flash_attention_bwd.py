@@ -22,15 +22,15 @@ import torch
 
 from transformertts_torch.ops.flash_attention import (
     NEG_INF, attention_bwd_plain, attention_fwd_lse_plain, attention_plain,
-    dkv_resources, dropout_keep_mask, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-    flash_attention_fwd_lse, flash_attention_trainable)
+    dkv_resources, dq_resources, dropout_keep_mask, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_fwd_lse, flash_attention_trainable)
 
 torch.set_num_threads(1)
 
 F32_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)
 F32_FWD_TOL = dict(atol=2e-5, rtol=1e-4)
 BF16_GRAD_TOL = dict(atol=0.12, rtol=0.12)
-# bfloat16 dK and dV against the float32 plain version: relative L2 error.
+# bfloat16 dQ, dK and dV against the float32 plain version: relative L2 error.
 # atol 0.12 alone would pass a wrong tile whose values are small.
 BF16_REL_L2_BAR = 1e-2
 
@@ -267,29 +267,49 @@ def test_trainable_on_card_launches_k2_k3_k4(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize('causal', [False, True])
 @pytest.mark.parametrize('d', [24, 64, 128, 192, 200, 256])
-def test_dkv_kernel_bfloat16_at_ragged_tiles(cuda, d, causal):
-    """K4 in bfloat16 at dropout 0.1 where its tiles are ragged: Tq 97 ends
-    in a partial query tile, Tk 130 in a 2-key block. D covers every head
-    width template; at 200 the two warps of a pair own 13 and 12 output
-    n-tiles. The plain version runs in float32 from the same inputs."""
+@pytest.mark.parametrize('kernel', ['dq', 'dkv'])
+def test_bwd_kernel_bfloat16_at_ragged_tiles(cuda, kernel, d, causal):
+    """K3 or K4 in bfloat16 at dropout 0.1 where their tiles are ragged: Tq 97
+    ends in a partial query tile (K3's block, K4's tile), Tk 130 in a 2-key
+    tile or block. D covers every head width template; at 200 the two warps
+    of a pair own 13 and 12 output n-tiles. The plain version runs in float32
+    from the same inputs."""
     b, h, tq, tk = 1, 2, 97, 130
     q, k, v, _, dout = _torch(*_inputs(b, h, tq, tk, d, seed=6), device=cuda)
     q, k, v, dout = (x.bfloat16() for x in (q, k, v, dout))
-    bias = torch.zeros(b, tk, device=cuda)   # the last block's keys carry gradient
+    bias = torch.zeros(b, tk, device=cuda)   # the last keys carry gradient
     args = (causal, 0.1, 321, 654)
     out, lse = attention_fwd_lse_plain(q, k, v, bias, *args)
-    count = flash_attention_bwd_dkv.launches
-    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args)
+    fn = flash_attention_bwd_dq if kernel == 'dq' else flash_attention_bwd_dkv
+    count = fn.launches
+    grads = fn(q, k, v, bias, out, lse, dout, *args)
     torch.cuda.synchronize()
-    assert flash_attention_bwd_dkv.launches == count + 1
+    assert fn.launches == count + 1
     ref = attention_bwd_plain(q.float(), k.float(), v.float(), bias, out.float(), lse,
-                              dout.float(), *args)[1:]
-    for mine, r in zip((dk, dv), ref):
+                              dout.float(), *args)
+    grads, ref = ((grads,), ref[:1]) if kernel == 'dq' else (grads, ref[1:])
+    for mine, r in zip(grads, ref):
         assert mine.dtype == torch.bfloat16 and torch.isfinite(mine).all()
         torch.testing.assert_close(mine.float(), r, **BF16_GRAD_TOL)
         assert ((mine.float() - r).norm() / r.norm()).item() < BF16_REL_L2_BAR
-    if not causal:
+    if kernel == 'dkv' and not causal:
+        dk, dv = grads
         assert dv[0, :, 128:].abs().max() > 0 and dk[0, :, 128:].abs().max() > 0
+    if kernel == 'dq':
+        # the last, partial query block gets gradient too
+        assert grads[0][0, :, 96:].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('d', [64, 128, 192, 256])
+def test_dq_kernel_keeps_its_accumulators_in_registers(cuda, d):
+    """The bfloat16 K3 design: a block of 8 warps fits an SM, and dQ stays in
+    registers (no local memory) at every head width template."""
+    res = dq_resources(d)
+    assert res['threads'] == 256 and res['blocks_per_sm'] >= 1
+    assert res['spill_bytes'] == 0 and res['registers'] <= 255
+    assert res['key_tile'] == (64 if d <= 192 else 32)
+    assert res['dynamic_smem_bytes'] <= 232448
 
 
 @pytest.mark.cuda

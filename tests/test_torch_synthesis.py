@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_nn import jax_and_port_models
+from test_torch_nn import TINY_CONFIG, jax_and_port_models
 from transformertts_torch.audio import Audio as TAudio
 from transformertts_torch.audio.wav_io import load_wav
+from transformertts_torch.models.forward_tts import ForwardTransformer as TFT
 from transformertts_torch.models.synthesis import synthesize_lines as t_synthesize
 from transformertts_tpu.audio import Audio as JAudio
 from transformertts_tpu.models.synthesis import synthesize_lines as j_synthesize
@@ -59,6 +60,41 @@ def test_lines_without_tokens_give_empty_wavs(models):
     _, tm, _ = models
     wavs = t_synthesize(tm, TAudio.from_config(tm.config), ['', LINES[2]], n_iter=1)
     assert wavs[0].shape == (0,) and wavs[1].size > 0
+
+
+def test_empty_line_contract_matches_jax(models):
+    """A line that tokenizes to nothing ('' and '漢字', which the phonemizer
+    drops) gives an empty float32 wav in both packages; '???' keeps three '?'
+    tokens, so it is no empty line, and both synthesize the same wav."""
+    jm, tm, _ = models
+    lines = ['', '???', '漢字']
+    j_wavs = j_synthesize(jm, JAudio.from_config(jm.config), lines, n_iter=2)
+    t_wavs = t_synthesize(tm, TAudio.from_config(tm.config), lines, n_iter=2)
+    for line, t, j in zip(lines, t_wavs, j_wavs):
+        assert t.dtype == j.dtype == np.float32
+        if len(jm.encode_text(line)) == 0:
+            assert len(tm.encode_text(line)) == 0
+            assert t.shape == j.shape == (0,)
+        else:
+            assert tm.encode_text(line) == jm.encode_text(line)
+            assert t.shape == j.shape and t.size > 0
+            np.testing.assert_allclose(t, j, rtol=0, atol=PCM16_STEP + 1e-3)
+    assert [w.size == 0 for w in t_wavs] == [True, False, True]
+
+
+def test_zero_durations_keep_one_frame_a_line():
+    """Durations that all round to zero (an untrained model's) still give
+    each line one frame of audio, as ``predict`` keeps one mel frame."""
+    tm = TFT(**TINY_CONFIG).init_params(torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        tm.dur_pred.linear.bias.fill_(-10.0)
+    audio = TAudio.from_config(tm.config)
+    with torch.inference_mode():
+        tok = torch.as_tensor([tm.encode_text(LINES[0])])
+        assert torch.round(tm.scaled_durations(tm.encode(tok), 1.0)).sum() == 0
+    wavs = t_synthesize(tm, audio, LINES, n_iter=1, max_batch=2)
+    assert [w.size for w in wavs] == [audio.hop_length] * len(LINES)
+    assert all(np.isfinite(w).all() for w in wavs)
 
 
 @pytest.mark.parametrize('batched', [True, False])

@@ -248,23 +248,29 @@ def test_checkpoints_keep_n_and_ignore_torn_writes(tmp_path):
     assert t_ckpt.latest_checkpoint(tmp_path).name == 'ckpt_3.npz'
 
 
-def test_train_tts_cli_three_steps_writes_what_jax_loads(tmp_path):
+def _tiny_session(work, **schedule):
+    """A session of the published config at the tiny widths, float32, over
+    10 synthetic samples of 40-80 frames: (session yaml, config manager)."""
     import chip_smoke
     from transformertts_torch.utils.config import TrainingConfigManager
     cfg = chip_smoke.write_session(
-        tmp_path,
+        work,
         tts_overrides={**{k: TINY_CONFIG[k] for k in (
             'encoder_model_dimension', 'decoder_model_dimension', 'encoder_num_heads',
             'decoder_num_heads', 'encoder_attention_conv_filters',
             'decoder_attention_conv_filters', 'duration_conv_filters',
-            'pitch_conv_filters')},
-            'compute_dtype': 'float32', 'max_steps': 3, 'validation_frequency': 3,
-            'checkpoint_frequency': 2, 'weights_save_frequency': 3,
-            'weights_save_starting_step': 0, 'prediction_start_step': 100},
+            'pitch_conv_filters')}, 'compute_dtype': 'float32', **schedule},
         data_overrides={'bucket_boundaries': [60, 90], 'bucket_batch_sizes': [4, 4, 2],
                         'val_bucket_batch_size': [4, 4, 2]})
     cm = TrainingConfigManager(cfg)
     chip_smoke.write_synthetic_data(cm, n_train=8, n_valid=2, frames=(40, 80))
+    return cfg, cm
+
+
+def test_train_tts_cli_three_steps_writes_what_jax_loads(tmp_path):
+    cfg, cm = _tiny_session(tmp_path, max_steps=3, validation_frequency=3,
+                            checkpoint_frequency=2, weights_save_frequency=3,
+                            weights_save_starting_step=0, prediction_start_step=100)
     proc = subprocess.run(
         [sys.executable, '-m', 'transformertts_torch.train_tts', '--config', str(cfg),
          '--yes', '--device', 'cpu'], cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -282,6 +288,41 @@ def test_train_tts_cli_three_steps_writes_what_jax_loads(tmp_path):
         cm.weights_dir / 'ckpt_3.npz', init_state(jm.params, make_optimizer(SCHEDULE)))
     assert int(restored.step) == 3
     assert np.isfinite(jm.predict('ab')['mel']).all()
+
+
+def _summary_values(log_dir):
+    """(tag, summary value) of every event file under ``log_dir``."""
+    import struct
+    from tensorboard.compat.proto.event_pb2 import Event
+    values = []
+    for path in sorted(log_dir.rglob('events.out.tfevents.*')):
+        blob, off = path.read_bytes(), 0
+        while off < len(blob):
+            (length,) = struct.unpack('<Q', blob[off:off + 8])
+            event = Event.FromString(blob[off + 12:off + 12 + length])
+            values += [(v.tag, v) for v in event.summary.value]
+            off += 16 + length
+    return values
+
+
+def test_train_tts_logs_validation_and_test_sentence_audio(tmp_path, monkeypatch):
+    """The training CLI logs Griffin-Lim wavs of a validation target, its
+    prediction and each test sentence, as the JAX CLI does."""
+    from transformertts_torch import train_tts
+    cfg, cm = _tiny_session(tmp_path, max_steps=2, validation_frequency=2,
+                            checkpoint_frequency=2, weights_save_frequency=100,
+                            prediction_frequency=2, prediction_start_step=0)
+    monkeypatch.chdir(ROOT)   # the test sentences are config/test_sentences.txt
+    validation = train_tts.main(['--config', str(cfg), '--yes', '--device', 'cpu'])
+    assert list(validation) == [2] and np.isfinite(validation[2])
+    audio = {tag: v.audio for tag, v in _summary_values(cm.log_dir) if v.HasField('audio')}
+    sentences = [i for i, line in enumerate(
+        (ROOT / 'config' / 'test_sentences.txt').read_text().splitlines()) if line.strip()]
+    assert sorted(audio) == sorted(['Validation/target_wav', 'Validation/pred_wav']
+                                   + [f'TestSentences/{i}_wav' for i in sentences])
+    for clip in audio.values():
+        assert clip.sample_rate == 22050 and clip.length_frames > 0
+        assert clip.encoded_audio_string[:4] == b'RIFF'
 
 
 def test_loss_falls_over_30_steps_with_dropout():

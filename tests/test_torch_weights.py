@@ -2,10 +2,13 @@
 
 Layouts are transposes, so every round trip is bit-exact.
 """
+import subprocess
+
 import jax
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from test_torch_nn import TINY_CONFIG
 from transformertts_torch.models.forward_tts import ForwardTransformer as TFT
@@ -70,8 +73,35 @@ def test_port_dir_loads_into_jax(tmp_path):
     loaded = JFT.load_model(str(tmp_path))
     _assert_flat_equal(flatten_params(jax.device_get(loaded.params)),
                        params_to_jax(port.state_dict()))
-    assert loaded.config == {**port.config, 'alphabet': loaded.config['alphabet'],
-                             'step': 0}
+    # the dir adds the alphabet, the step and, where git tells it, git_hash
+    written = {k: loaded.config[k] for k in ('alphabet', 'git_hash') if k in loaded.config}
+    assert loaded.config == {**port.config, **written, 'step': 0}
+
+
+@pytest.mark.parametrize('git', ['repo', 'not-a-repo', 'no-git'])
+def test_port_dir_records_git_hash_as_jax_does(tmp_path, monkeypatch, git):
+    """config.yaml carries ``git describe --always`` as ``git_hash``, and
+    nothing when git cannot tell it; either dir loads into both packages."""
+    from transformertts_torch.models import persistence
+
+    def describe(cmd, **kwargs):
+        assert cmd == ['git', 'describe', '--always']
+        if git == 'no-git':
+            raise FileNotFoundError('git')
+        if git == 'not-a-repo':
+            raise subprocess.CalledProcessError(128, cmd)
+        return b'v1.2-3-gabcdef0\n'
+
+    monkeypatch.setattr(persistence.subprocess, 'check_output', describe)
+    TFT(**TINY_CONFIG).init_params(torch.Generator().manual_seed(3)).save_model(tmp_path)
+    config = yaml.safe_load((tmp_path / 'config.yaml').read_text())
+    if git == 'repo':
+        assert config['git_hash'] == 'v1.2-3-gabcdef0'
+    else:
+        assert 'git_hash' not in config
+    monkeypatch.undo()
+    assert JFT.load_model(str(tmp_path)).config.get('git_hash') == config.get('git_hash')
+    assert TFT.load_model(tmp_path, device='cpu').step == 0
 
 
 def test_port_init_matches_jax_initializer_scales():

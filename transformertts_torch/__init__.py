@@ -8,8 +8,12 @@ helpers, VAD) are its own copies.
 
     from transformertts_torch.models import ForwardTransformer
     from transformertts_torch.audio import Audio
-    model = ForwardTransformer.load_model('/path/to/model_dir', device='cuda')
+    model = ForwardTransformer.load_model('/path/to/model_dir')
     audio = Audio.from_config(model.config)
     out = model.predict('Please, say something.')
-    wav = audio.reconstruct_waveform(out['mel'], device='cuda')
+    wav = audio.reconstruct_waveform(out['mel'])
+
+Entry points that take a ``device`` run on the card unless the caller names
+another (``device='cpu'``, as the CPU tests do); without a card such a call
+raises and never falls back to the CPU.
 """

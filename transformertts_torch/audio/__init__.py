@@ -1,7 +1,7 @@
 """Config-driven audio, the counterpart of ``transformertts_tpu/audio/__init__.py``:
 the MelGAN and WaveRNN normalizers; featurization (mel spectrograms, the
-fused log-mel of centre-padded batches, YIN pitch) on a device the caller
-names; wav loading with the offline cleanup (volume normalization, VAD
+fused log-mel of centre-padded batches, YIN pitch) on the card unless the
+caller names another device; wav loading with the offline cleanup (volume normalization, VAD
 silence trimming) on the host; mel → waveform by mel inversion and
 Griffin-Lim; wav output.
 """
@@ -106,7 +106,7 @@ class Audio:
         return (self.sampling_rate, self.n_fft, self.hop_length, self.win_length,
                 self.mel_channels, self.f_min, self.f_max)
 
-    def mel_spectrogram(self, wav, device) -> np.ndarray:
+    def mel_spectrogram(self, wav, device='cuda') -> np.ndarray:
         """One waveform (T,) → normalized log-mel (1 + T // hop, mel_channels),
         computed on ``device``: what the models are trained to reproduce."""
         y = torch.as_tensor(np.asarray(wav, np.float32), device=device)
@@ -129,7 +129,7 @@ class Audio:
         return self.normalizer.normalize(spectral.mel_spectrogram(
             wavs_centered.float(), *self._mel_args(), center=False))
 
-    def extract_pitch(self, y, device) -> np.ndarray:
+    def extract_pitch(self, y, device='cuda') -> np.ndarray:
         """Frame-aligned F0 of one clip (the mel's frame count), on ``device``."""
         return pitch.extract_pitch_np(np.asarray(y, np.float32), self.sampling_rate,
                                       self.hop_length, device=device)
@@ -191,7 +191,8 @@ class Audio:
         return griffinlim.griffin_lim(S, n_iter, self.n_fft, self.hop_length,
                                       self.win_length)
 
-    def reconstruct_waveform_batch(self, mels, device, n_iter: int = None) -> np.ndarray:
+    def reconstruct_waveform_batch(self, mels, device='cuda',
+                                   n_iter: int = None) -> np.ndarray:
         """Batched Griffin-Lim on ``device``: (B, T, mel_channels) normalized
         log-mels → (B, samples) numpy waveforms."""
         mels = torch.as_tensor(np.asarray(mels, np.float32), device=device)
@@ -203,7 +204,7 @@ class Audio:
             mels = torch.cat([mels, pad], dim=1)
         return self.mels_to_waveforms(mels, n_iter).cpu().numpy()
 
-    def reconstruct_waveform(self, mel, device, n_iter: int = None) -> np.ndarray:
+    def reconstruct_waveform(self, mel, device='cuda', n_iter: int = None) -> np.ndarray:
         """One normalized log-mel (T, mel_channels), or (mel_channels, T) as
         the reference accepts, → waveform, computed on ``device``."""
         mel = np.asarray(mel, np.float32)

@@ -79,7 +79,7 @@ def yin_f0(wav: torch.Tensor, sampling_rate: int, hop_length: int,
 
 
 def extract_pitch_np(wav: np.ndarray, sampling_rate: int, hop_length: int,
-                     device='cpu', **kwargs) -> np.ndarray:
+                     device='cuda', **kwargs) -> np.ndarray:
     """One clip (T,) → (1 + T // hop,) F0 as numpy, computed on ``device``."""
     y = torch.as_tensor(np.asarray(wav, np.float32), device=device)[None]
     return yin_f0(y, sampling_rate, hop_length, **kwargs)[0].cpu().numpy()

@@ -25,12 +25,12 @@
 // - The TPU kernels keep a (batch, head)'s whole K/V (dQ) or whole Q/dO (dK,
 //   dV) in VMEM. At the training shapes (T 512-896, D 192, bf16) each is
 //   0.2-0.35 MB, over the 227 KB of shared memory a block has. Since lse is
-//   known, no online rescaling is needed: K3 streams 64-key tiles past a
+//   known, no online rescaling is needed: K3 streams key tiles past a
 //   64-query block, K4 streams query tiles past a 64-key block, and each
 //   block owns its output rows, so there are no atomics.
-// - bfloat16 runs all four products on the tensor cores with mma.sync
-//   m16n8k16 (float32 accumulate); P and dS go back to them in bfloat16.
-//   K3 stores K^T in shared memory as the tiles arrive.
+// - bfloat16 runs all products on the tensor cores with mma.sync m16n8k16
+//   (float32 accumulate); P and dS go back to them in bfloat16. Both kernels
+//   have one structure, below.
 // - float32 runs SIMT kernels on the CUDA cores (TF32 would not hold float32
 //   parity): 256 threads, K3 with 64 queries x 32-key tiles, K4 with 32 keys x
 //   32-query tiles.
@@ -68,6 +68,28 @@
 // 80GB HBM3 at 700 W, 0.316 ms at the decoder's training shape (dropout
 // 0.1) against 0.329 ms with 32-query tiles, which still leave one block an
 // SM. At D > 192 it is 32, since 64 would need 237,568 B of shared memory.
+//
+// K3 in bfloat16 (attn_dq_mma_kernel). At the same shape its three products
+// (S, dP, dS K) are 19.3 GFLOP against 63 MB: bound by operations, 0.0195
+// ms. The first design took 0.587 ms: 4 warps a block, one block an SM (Q,
+// dO, K, V and K^T in 130 KB of shared memory), K^T stored 2 bytes at a
+// time, every operand by scalar 32-bit loads, and each key tile loaded
+// between two barriers before any math. It now has K4's structure, with the
+// roles of queries and keys exchanged:
+// - 8 warps in pairs: warps w and w + 4 share queries q0 + 16 (w % 4) .. + 15;
+//   over a key tile w computes S = Q K^T, w + 4 dP = dO V^T, they swap
+//   accumulators as K4's pairs do, both form dS, and each accumulates
+//   dQ += dS K over half of the columns: 48 floats a thread at D 192.
+// - ldmatrix.x4 loads every operand; .trans on the row-major K tile gives
+//   the B operands of dS K, so there is no K^T copy.
+// - K, V and the bias of the next key tile arrive by cp.async (zero-filled
+//   outside Tk and D) in a two-stage ring while the current tile computes.
+// - A block's query rows are fixed, so each thread holds (m, log l), D and
+//   the dropout row hash of its two rows in registers throughout.
+// Shared memory at D 192: Q and dO 51,200 B, the K/V ring 102,400 B, the
+// swap buffer 32,768 B and the bias ring 512 B, 186,880 B in all: one block
+// of 8 warps an SM. At D > 192 the key tile is 32, since 64 would need
+// 236,032 B, over a block's 232,448.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,17 +129,12 @@ __device__ __forceinline__ float2 row_lse_at(const float* lse, long long i) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16)
+// bfloat16: tensor cores (mma.sync m16n8k16), 8 warps in pairs, ldmatrix
+// operands, a two-stage cp.async ring (see the notes at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;   // K3: 4 warps x 16 rows
-constexpr int TILE = 64;           // K3: queries a block and keys a tile; K4: keys a block
-constexpr int T64_STRIDE = TILE + 8;    // row stride of K3's K^T (bf16); the pad
-                                        // keeps fragment loads conflict free
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int MMA_THREADS = 256;   // 4 pairs of warps, 16 rows a pair
+constexpr int TILE = 64;           // K3: queries a block; K4: keys a block
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -133,174 +150,6 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
-
-// Rows [r0, r0 + n) of a (T, D) bf16 matrix into smem: row-major with stride
-// rs (if rm) and transposed [d][row] with stride ts (if tr); zero outside.
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* src, int r0, int n,
-                                          int T, int D, int DP,
-                                          __nv_bfloat16* rm, int rs,
-                                          __nv_bfloat16* tr, int ts) {
-    const int C8 = DP / 8;
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int idx = threadIdx.x; idx < n * C8; idx += blockDim.x) {
-        // rows fastest, so the transposed 2-byte stores of a warp land on
-        // consecutive addresses of one transposed row
-        int r = idx % n, d = (idx / n) * 8;
-        uint4 x = (r0 + r < T && d < D)
-            ? *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * D + d) : zero;
-        if (rm) *reinterpret_cast<uint4*>(rm + r * rs + d) = x;
-        if (tr) {
-            const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) tr[(d + i) * ts + r] = e[i];
-        }
-    }
-}
-
-// acc(16 x 8*nt) += A(16 x DP, row-major smem, this warp's rows) . B^T where B
-// is (8*nt x DP) row-major smem: the score products Q K^T, dO V^T, K Q^T, V dO^T
-template <int NT>
-__device__ __forceinline__ void scores(float (*acc)[4], const __nv_bfloat16* a,
-                                       const __nv_bfloat16* b, int stride, int DP,
-                                       int g, int t) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    const __nv_bfloat16* aw = a + g * stride + 2 * t;
-    for (int kd = 0; kd < DP; kd += 16) {
-        uint32_t a0 = ld32(aw + kd), a1 = ld32(aw + 8 * stride + kd);
-        uint32_t a2 = ld32(aw + kd + 8), a3 = ld32(aw + 8 * stride + kd + 8);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            const __nv_bfloat16* bp = b + (n * 8 + g) * stride + kd + 2 * t;
-            mma_bf16(acc[n], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-        }
-    }
-}
-
-size_t dq_mma_smem_bytes(int d) {
-    int dp = (d + 15) / 16 * 16;
-    // Q, dO, K, V row-major [64][dp + 8]; K^T [dp][72]; bias [64]
-    return ((size_t)4 * TILE * (dp + 8) + (size_t)dp * T64_STRIDE)
-        * sizeof(__nv_bfloat16) + TILE * sizeof(float);
-}
-
-// K3: grid (B*H, ceil(Tq / 64)); warp w owns query rows q0 + 16 w .. + 15.
-template <int DMAX>
-__global__ void __launch_bounds__(MMA_THREADS)
-attn_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const float* __restrict__ bias,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ dsum,
-                   __nv_bfloat16* __restrict__ dq, int H, int Tq, int Tk, int D,
-                   int causal, float scale, Drop drop) {
-    constexpr int NT = DMAX / 8;
-    const int DP = (D + 15) / 16 * 16;
-    const int RS = DP + 8;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][RS]
-    __nv_bfloat16* dos = qs + TILE * RS;                                // [64][RS]
-    __nv_bfloat16* ks = dos + TILE * RS;                                // [64][RS]
-    __nv_bfloat16* vs = ks + TILE * RS;                                 // [64][RS]
-    __nv_bfloat16* kt = vs + TILE * RS;                                 // [DP][72]
-    float* bs = reinterpret_cast<float*>(kt + DP * T64_STRIDE);         // [64]
-
-    const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
-    const int g = lane / 4, t = lane % 4;
-    const int bh = blockIdx.x, b = bh / H;
-    const int q0 = blockIdx.y * TILE;
-    const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
-    const float* biasb = bias + (long long)b * Tk;
-
-    load_tile(q + qoff, q0, TILE, Tq, D, DP, qs, RS, nullptr, 0);
-    load_tile(dout + qoff, q0, TILE, Tq, D, DP, dos, RS, nullptr, 0);
-
-    const int row0 = q0 + warp * 16 + g;   // rows row0 and row0 + 8
-    float2 row_lse[2];
-    float row_d[2];
-    uint32_t hr[2] = {0u, 0u};
-    const bool dropping = drop.thr != 0u;
-    const uint32_t hb = dropping ? dropout_bh_hash(drop.key, bh) : 0u;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        int row = row0 + 8 * h;
-        row_lse[h] = row < Tq ? row_lse_at(lse, (long long)bh * Tq + row)
-                              : make_float2(0.f, 0.f);
-        row_d[h] = row < Tq ? dsum[(long long)bh * Tq + row] : 0.f;
-        if (dropping) hr[h] = dropout_row_hash(hb, row);
-    }
-
-    float acc[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-    for (int k0 = 0; k0 < Tk; k0 += TILE) {
-        __syncthreads();   // the previous tile's reads are done
-        load_tile(k + koff, k0, TILE, Tk, D, DP, ks, RS, kt, T64_STRIDE);
-        load_tile(v + koff, k0, TILE, Tk, D, DP, vs, RS, nullptr, 0);
-        if (tid < TILE) bs[tid] = (k0 + tid < Tk) ? biasb[k0 + tid] : 0.f;
-        __syncthreads();
-
-        float s[TILE / 8][4], dp[TILE / 8][4];
-        scores<TILE / 8>(s, qs + warp * 16 * RS, ks, RS, DP, g, t);
-        scores<TILE / 8>(dp, dos + warp * 16 * RS, vs, RS, DP, g, t);
-#pragma unroll
-        for (int n = 0; n < TILE / 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                int h = e >> 1, key = n * 8 + 2 * t + (e & 1);
-                float p = recompute_p(s[n][e], scale, bs[key], row0 + 8 * h, k0 + key,
-                                      Tq, Tk, causal, row_lse[h]);
-                float dpd = dp[n][e];
-                if (dropping)
-                    dpd = dropout_keep(hr[h], k0 + key, drop.thr) ? dpd * drop.keep_scale : 0.f;
-                s[n][e] = recompute_ds(p, dpd, row_d[h], row0 + 8 * h, k0 + key, causal);
-            }
-        }
-        // dQ += dS K: dS accumulators of n-tiles 2kk, 2kk+1 are the A
-        // fragment of k-step kk; K^T in smem gives the B fragments
-#pragma unroll
-        for (int kk = 0; kk < TILE / 16; ++kk) {
-            uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-            uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-            uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-                if (n * 8 < D) {
-                    const __nv_bfloat16* bp = kt + (n * 8 + g) * T64_STRIDE + kk * 16 + 2 * t;
-                    mma_bf16(acc[n], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-                }
-            }
-        }
-    }
-
-    __nv_bfloat16* dqb = dq + qoff;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        int row = row0 + 8 * h;
-        if (row >= Tq) continue;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            int col = n * 8 + 2 * t;
-            if (col < D)
-                *reinterpret_cast<__nv_bfloat162*>(dqb + (long long)row * D + col) =
-                    __floats2bfloat162_rn(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// K4, bfloat16: 8 warps in pairs, dK and dV in registers, ldmatrix operands,
-// a two-stage cp.async ring of query tiles (see the note at the top)
-// ---------------------------------------------------------------------------
-
-constexpr int DKV_THREADS = 256;   // 4 pairs of warps, 16 keys a pair
-
-// queries a tile (see the note at the top)
-__host__ __device__ constexpr int dkv_qtile(int d) { return d > 192 ? 32 : 64; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -355,12 +204,215 @@ __device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst, int rs,
                                               const __nv_bfloat16* src, int r0, int n,
                                               int T, int D, int DP) {
     const int C8 = DP / 8;
-    for (int idx = threadIdx.x; idx < n * C8; idx += DKV_THREADS) {
+    for (int idx = threadIdx.x; idx < n * C8; idx += MMA_THREADS) {
         int r = idx / C8, c = (idx - r * C8) * 8;
         bool in = r0 + r < T && c < D;
         cp_async16(dst + r * rs + c, in ? src + (long long)(r0 + r) * D + c : src, in);
     }
 }
+
+// acc(16 x 8 SN) = A B^T over the depth DP, with A 16 rows and B 8 SN rows
+// of row-major tiles of stride rs: the score products (S, dP and, in K4,
+// their transposes). a: this lane's ldmatrix address of A's rows; b: of B's
+// n-tiles 0 and 1.
+template <int SN>
+__device__ __forceinline__ void tile_scores(float (*acc)[4], const __nv_bfloat16* a,
+                                            const __nv_bfloat16* b, int rs, int DP) {
+#pragma unroll
+    for (int n = 0; n < SN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int kd = 0; kd < DP; kd += 16) {
+        uint32_t af[4];
+        ldsm_x4(af, a + kd);
+#pragma unroll
+        for (int np = 0; np < SN; np += 2) {
+            uint32_t bb[4];
+            ldsm_x4(bb, b + np * 8 * rs + kd);
+            mma_bf16(acc[np], af[0], af[1], af[2], af[3], bb[0], bb[1]);
+            mma_bf16(acc[np + 1], af[0], af[1], af[2], af[3], bb[2], bb[3]);
+        }
+    }
+}
+
+// K3's dQ += dS K, one k-step: acc[j] += A B_j for the warp's output n-tiles
+// j < cnt, A the k-step's fragment of dS, B_j its 16 rows of the row-major K
+// tile at n-tile j, read transposed (tr: this lane's address of n-tiles 0
+// and 1). An odd cnt reads one n-tile past its last (still inside the row:
+// DP rounds D up to 16) and skips that mma.
+template <int NH>
+__device__ __forceinline__ void mma_trans(float (*acc)[4], const uint32_t* a,
+                                          const __nv_bfloat16* tr, int cnt) {
+#pragma unroll
+    for (int j = 0; j < NH; j += 2) {
+        if (j < cnt) {
+            uint32_t bb[4];
+            ldsm_x4_trans(bb, tr + j * 8);
+            mma_bf16(acc[j], a[0], a[1], a[2], a[3], bb[0], bb[1]);
+            if (j + 1 < cnt) mma_bf16(acc[j + 1], a[0], a[1], a[2], a[3], bb[2], bb[3]);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K3, bfloat16
+// ---------------------------------------------------------------------------
+
+// keys a tile (see the note at the top)
+__host__ __device__ constexpr int dq_ktile(int d) { return d > 192 ? 32 : 64; }
+
+size_t dq_mma_smem_bytes(int d) {
+    size_t rs = (d + 15) / 16 * 16 + 8, bk = dq_ktile(d);
+    // bf16 Q, dO [64][rs] and a ring of 2 x (K, V) [bk][rs]; the swap buffer,
+    // float4 [8 warps][bk / 8][32 lanes]; a ring of 2 x bias [bk]
+    return (2 * TILE + 4 * bk) * rs * sizeof(__nv_bfloat16)
+        + 8 * (bk / 8) * 32 * sizeof(float4) + 2 * bk * sizeof(float);
+}
+
+// K3: grid (B*H, ceil(Tq / 64)), 8 warps. Warps w and w + 4 own query rows
+// q0 + 16 (w % 4) .. + 15.
+template <int DMAX>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+attn_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const float* __restrict__ bias,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ dsum,
+                   __nv_bfloat16* __restrict__ dq, int H, int Tq, int Tk, int D,
+                   int causal, float scale, Drop drop) {
+    constexpr int BK = dq_ktile(DMAX);
+    constexpr int SN = BK / 8;        // score n-tiles of 8 keys
+    constexpr int KS = BK / 16;       // k-steps of dS K
+    constexpr int NH = DMAX / 16;     // dQ n-tiles a warp: half the columns
+    const int DP = (D + 15) / 16 * 16;
+    const int RS = DP + 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][RS]
+    __nv_bfloat16* dos = qs + TILE * RS;                                // [64][RS]
+    __nv_bfloat16* ring = dos + TILE * RS;         // [2 stages][K, V][BK][RS]
+    float4* xch = reinterpret_cast<float4*>(ring + 4 * BK * RS);   // [8][SN][32]
+    float* bias_s = reinterpret_cast<float*>(xch + 8 * SN * 32);   // [2][BK]
+
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int pair = warp % 4, half = warp / 4;
+    const int bh = blockIdx.x, b = bh / H;
+    const int q0 = blockIdx.y * TILE;
+    const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
+    const float* bias_b = bias + (long long)b * Tk;
+
+    // one key tile into ring stage st: K, V and the bias by cp.async, one
+    // commit group
+    auto load_stage = [&](int st, int k0) {
+        cp_async_rows(ring + 2 * st * BK * RS, RS, k + koff, k0, BK, Tk, D, DP);
+        cp_async_rows(ring + (2 * st + 1) * BK * RS, RS, v + koff, k0, BK, Tk, D, DP);
+        if (tid < BK) {
+            bool in = k0 + tid < Tk;
+            cp_async4(bias_s + st * BK + tid, in ? bias_b + k0 + tid : bias_b, in);
+        }
+        cp_async_commit();
+    };
+    cp_async_rows(qs, RS, q + qoff, q0, TILE, Tq, D, DP);
+    cp_async_rows(dos, RS, dout + qoff, q0, TILE, Tq, D, DP);
+    load_stage(0, 0);   // one group with Q and dO
+
+    const int row0 = q0 + pair * 16 + g;   // rows row0 and row0 + 8
+    float2 row_lse[2];
+    float row_d[2];
+    uint32_t hr[2] = {0u, 0u};
+    const bool dropping = drop.thr != 0u;
+    const uint32_t hb = dropping ? dropout_bh_hash(drop.key, bh) : 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        int row = row0 + 8 * h;
+        row_lse[h] = row < Tq ? row_lse_at(lse, (long long)bh * Tq + row)
+                              : make_float2(0.f, 0.f);
+        row_d[h] = row < Tq ? dsum[(long long)bh * Tq + row] : 0.f;
+        if (dropping) hr[h] = dropout_row_hash(hb, row);
+    }
+
+    // this warp's dQ columns: n-tiles [nb, nb + cnt) of the D / 8
+    const int nd = D / 8, nlow = (nd + 1) / 2;
+    const int nb = half ? nlow : 0, cnt = half ? nd - nlow : nlow;
+    float acc[NH][4];
+#pragma unroll
+    for (int n = 0; n < NH; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+    // ldmatrix lane offsets: A rows (this pair's 16 queries of Q or dO); B of
+    // the score product, n-tiles np and np + 1 (rows of K or V); B of dS K,
+    // transposed, k-step rows and n-tiles j and j + 1
+    const __nv_bfloat16* a_src = (half ? dos : qs) + (pair * 16 + lane % 16) * RS
+                                 + (lane / 16) * 8;
+    const int b_off = ((lane / 16) * 8 + lane % 8) * RS + ((lane / 8) % 2) * 8;
+    const int t_off = (((lane / 8) % 2) * 8 + lane % 8) * RS + (lane / 16) * 8 + nb * 8;
+    float4* swap_out = xch + warp * SN * 32 + lane;
+    const float4* swap_in = xch + (warp ^ 4) * SN * 32 + lane;
+
+    for (int it = 0, k0 = 0; k0 < Tk; ++it, k0 += BK) {
+        const int st = it & 1;
+        cp_async_wait_all();
+        __syncthreads();   // stage st landed for all; stage st ^ 1 is free
+        if (k0 + BK < Tk) load_stage(st ^ 1, k0 + BK);
+        const __nv_bfloat16* ks = ring + 2 * st * BK * RS;
+        const __nv_bfloat16* vs = ks + BK * RS;
+        const float* bs = bias_s + st * BK;
+
+        // S = Q K^T (w < 4) or dP = dO V^T (w >= 4) for 16 queries x BK keys
+        float mine[SN][4];
+        tile_scores<SN>(mine, a_src, (half ? vs : ks) + b_off, RS, DP);
+        // swap with the partner warp: both then hold S and dP
+#pragma unroll
+        for (int n = 0; n < SN; ++n)
+            swap_out[n * 32] = make_float4(mine[n][0], mine[n][1], mine[n][2], mine[n][3]);
+        pair_sync(pair);
+        uint32_t sa[KS][4];   // A fragments of dS
+#pragma unroll
+        for (int n = 0; n < SN; ++n) {
+            const float4 o4 = swap_in[n * 32];
+            const float other[4] = {o4.x, o4.y, o4.z, o4.w};
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int h = e >> 1, key = n * 8 + 2 * t + (e & 1);
+                const int row = row0 + 8 * h, col = k0 + key;
+                const float s = half ? other[e] : mine[n][e];
+                float dp = half ? mine[n][e] : other[e];
+                float p = recompute_p(s, scale, bs[key], row, col, Tq, Tk, causal, row_lse[h]);
+                if (dropping)
+                    dp = dropout_keep(hr[h], col, drop.thr) ? dp * drop.keep_scale : 0.f;
+                ds[e] = recompute_ds(p, dp, row_d[h], row, col, causal);
+            }
+            // accumulator n-tiles 2kk, 2kk + 1 are the A fragment of k-step kk
+            sa[n / 2][(n % 2) * 2] = pack_bf16(ds[0], ds[1]);
+            sa[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+
+        // dQ += dS K over this warp's columns
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+            mma_trans<NH>(acc, sa[kk], ks + kk * 16 * RS + t_off, cnt);
+    }
+
+    __nv_bfloat16* dqb = dq + qoff;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        int row = row0 + 8 * h;
+        if (row >= Tq) continue;
+#pragma unroll
+        for (int j = 0; j < NH; ++j) {
+            if (j < cnt)
+                *reinterpret_cast<__nv_bfloat162*>(dqb + (long long)row * D + (nb + j) * 8 + 2 * t) =
+                    __floats2bfloat162_rn(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K4, bfloat16
+// ---------------------------------------------------------------------------
+
+// queries a tile (see the note at the top)
+__host__ __device__ constexpr int dkv_qtile(int d) { return d > 192 ? 32 : 64; }
 
 size_t dkv_mma_smem_bytes(int d) {
     size_t rs = (d + 15) / 16 * 16 + 8, bq = dkv_qtile(d);
@@ -374,7 +426,7 @@ size_t dkv_mma_smem_bytes(int d) {
 // K4: grid (B*H, ceil(Tk / 64)), 8 warps. Warps w and w + 4 own key rows
 // k0 + 16 (w % 4) .. + 15; the score tiles are transposed (keys x queries).
 template <int DMAX>
-__global__ void __launch_bounds__(DKV_THREADS, 1)
+__global__ void __launch_bounds__(MMA_THREADS, 1)
 attn_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -463,20 +515,7 @@ attn_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
         // S^T = K Q^T (w < 4) or dP^T = V dO^T (w >= 4) for 16 keys x BQ
         float mine[SN][4];
-#pragma unroll
-        for (int n = 0; n < SN; ++n) mine[n][0] = mine[n][1] = mine[n][2] = mine[n][3] = 0.f;
-        const __nv_bfloat16* b_src = (half ? dos : qs) + b_off;
-        for (int kd = 0; kd < DP; kd += 16) {
-            uint32_t a[4];
-            ldsm_x4(a, a_src + kd);
-#pragma unroll
-            for (int np = 0; np < SN; np += 2) {
-                uint32_t bb[4];
-                ldsm_x4(bb, b_src + np * 8 * RS + kd);
-                mma_bf16(mine[np], a[0], a[1], a[2], a[3], bb[0], bb[1]);
-                mma_bf16(mine[np + 1], a[0], a[1], a[2], a[3], bb[2], bb[3]);
-            }
-        }
+        tile_scores<SN>(mine, a_src, (half ? dos : qs) + b_off, RS, DP);
         // swap with the partner warp: both then hold S^T and dP^T
 #pragma unroll
         for (int n = 0; n < SN; ++n)
@@ -513,7 +552,9 @@ attn_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
             sa[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
         }
 
-        // dV += (P o M)^T dO and dK += dS^T Q over this warp's columns
+        // dV += (P o M)^T dO and dK += dS^T Q over this warp's columns, their
+        // n-tiles interleaved: one product after the other (mma_trans twice)
+        // ran about 5 % slower at the decoder's training shape
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
             const __nv_bfloat16* dot = dos + kk * 16 * RS + t_off;
@@ -835,41 +876,39 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t bytes, cudaStream_t str
     return (int)cudaGetLastError();
 }
 
-// What the bf16 K4 kernel for head width D uses, as the card reports it:
-// out = {registers a thread, local (spill) bytes a thread, static and
-// dynamic shared memory a block, blocks an SM, threads a block, queries a
-// tile}.
-template <int DMAX>
-int dkv_mma_resources(int D, int* out) {
-    auto kernel = attn_dkv_mma_kernel<DMAX>;
-    int bytes = (int)dkv_mma_smem_bytes(D), blocks = 0;
+// What a bf16 kernel uses, as the card reports it: out = {registers a
+// thread, local (spill) bytes a thread, static and dynamic shared memory a
+// block, blocks an SM, threads a block, its tile (K3: keys, K4: queries)}.
+template <typename Kernel>
+int mma_resources(Kernel kernel, size_t bytes, int tile, int* out) {
+    int blocks = 0;
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, DKV_THREADS,
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, MMA_THREADS,
                                                             bytes);
     if (err != cudaSuccess) return (int)err;
     const int values[7] = {attr.numRegs, (int)attr.localSizeBytes,
-                           (int)attr.sharedSizeBytes, bytes, blocks, DKV_THREADS,
-                           dkv_qtile(D)};
+                           (int)attr.sharedSizeBytes, (int)bytes, blocks, MMA_THREADS,
+                           tile};
     for (int i = 0; i < 7; ++i) out[i] = values[i];
     return 0;
 }
 
+bool bad_width(int D) { return D < 8 || D > 256 || D % 8 != 0; }
+
 bool bad_shape(int B, int H, int Tq, int Tk, int D) {
-    return B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 8 || D > 256 || D % 8 != 0
+    return B < 1 || H < 1 || Tq < 1 || Tk < 1 || bad_width(D)
         || (Tq + 63) / 64 > 65535 || (Tk + 31) / 32 > 65535;
 }
 
 }  // namespace
 
-#define DISPATCH_D(KERNEL, T, ...)                                                   \
-    (D <= 64 ? launch(KERNEL<64>, __VA_ARGS__)                                        \
-     : D <= 128 ? launch(KERNEL<128>, __VA_ARGS__)                                    \
-     : D <= 192 ? launch(KERNEL<192>, __VA_ARGS__)                                    \
-                : launch(KERNEL<256>, __VA_ARGS__))
+// the instance of KERNEL for head width D
+#define PICK_D(KERNEL)                                                               \
+    (D <= 64 ? KERNEL<64> : D <= 128 ? KERNEL<128> : D <= 192 ? KERNEL<192> : KERNEL<256>)
 
 // K3. dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and dq share it).
 // Contiguous tensors: q, dout, dq (B, H, Tq, D); k, v (B, H, Tk, D); bias
@@ -888,17 +927,16 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
     dim3 grid(B * H, (Tq + 63) / 64);
     if (dtype == 0) {
         using T = float;
-        return DISPATCH_D(attn_dq_simt_kernel, T, grid, SIMT_THREADS,
-                          dq_simt_smem_bytes(D), s, (const T*)q, (const T*)k,
-                          (const T*)v, bias, (const T*)dout, lse, dsum, (T*)dq, H, Tq,
-                          Tk, D, causal, scale, drop);
+        return launch(PICK_D(attn_dq_simt_kernel), grid, SIMT_THREADS,
+                      dq_simt_smem_bytes(D), s, (const T*)q, (const T*)k, (const T*)v,
+                      bias, (const T*)dout, lse, dsum, (T*)dq, H, Tq, Tk, D, causal,
+                      scale, drop);
     }
     if (dtype == 1) {
         using T = __nv_bfloat16;
-        return DISPATCH_D(attn_dq_mma_kernel, T, grid, MMA_THREADS,
-                          dq_mma_smem_bytes(D), s, (const T*)q, (const T*)k,
-                          (const T*)v, bias, (const T*)dout, lse, dsum, (T*)dq, H, Tq,
-                          Tk, D, causal, scale, drop);
+        return launch(PICK_D(attn_dq_mma_kernel), grid, MMA_THREADS, dq_mma_smem_bytes(D),
+                      s, (const T*)q, (const T*)k, (const T*)v, bias, (const T*)dout, lse,
+                      dsum, (T*)dq, H, Tq, Tk, D, causal, scale, drop);
     }
     return -1;
 }
@@ -915,27 +953,30 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     Drop drop{key, thr, keep_scale};
     if (dtype == 0) {
         using T = float;
-        return DISPATCH_D(attn_dkv_simt_kernel, T, dim3(B * H, (Tk + 31) / 32),
-                          SIMT_THREADS, dkv_simt_smem_bytes(D), s, (const T*)q,
-                          (const T*)k, (const T*)v, bias, (const T*)dout, lse, dsum,
-                          (T*)dk, (T*)dv, H, Tq, Tk, D, causal, scale, drop);
+        return launch(PICK_D(attn_dkv_simt_kernel), dim3(B * H, (Tk + 31) / 32),
+                      SIMT_THREADS, dkv_simt_smem_bytes(D), s, (const T*)q, (const T*)k,
+                      (const T*)v, bias, (const T*)dout, lse, dsum, (T*)dk, (T*)dv, H, Tq,
+                      Tk, D, causal, scale, drop);
     }
     if (dtype == 1) {
         using T = __nv_bfloat16;
-        return DISPATCH_D(attn_dkv_mma_kernel, T, dim3(B * H, (Tk + 63) / 64),
-                          DKV_THREADS, dkv_mma_smem_bytes(D), s, (const T*)q,
-                          (const T*)k, (const T*)v, bias, (const T*)dout, lse, dsum,
-                          (T*)dk, (T*)dv, H, Tq, Tk, D, causal, scale, drop);
+        return launch(PICK_D(attn_dkv_mma_kernel), dim3(B * H, (Tk + 63) / 64),
+                      MMA_THREADS, dkv_mma_smem_bytes(D), s, (const T*)q, (const T*)k,
+                      (const T*)v, bias, (const T*)dout, lse, dsum, (T*)dk, (T*)dv, H, Tq,
+                      Tk, D, causal, scale, drop);
     }
     return -1;
 }
 
-// K4's resources at head width D (see dkv_mma_resources): 0, a cudaError_t,
-// or -1 for a width the kernels do not take.
+// K3's and K4's bf16 resources at head width D (see mma_resources): 0, a
+// cudaError_t, or -1 for a width the kernels do not take.
+extern "C" int flash_attention_bwd_dq_resources(int D, int* out) {
+    if (bad_width(D)) return -1;
+    return mma_resources(PICK_D(attn_dq_mma_kernel), dq_mma_smem_bytes(D), dq_ktile(D), out);
+}
+
 extern "C" int flash_attention_bwd_dkv_resources(int D, int* out) {
-    if (D < 8 || D > 256 || D % 8 != 0) return -1;
-    return D <= 64 ? dkv_mma_resources<64>(D, out)
-         : D <= 128 ? dkv_mma_resources<128>(D, out)
-         : D <= 192 ? dkv_mma_resources<192>(D, out)
-                    : dkv_mma_resources<256>(D, out);
+    if (bad_width(D)) return -1;
+    return mma_resources(PICK_D(attn_dkv_mma_kernel), dkv_mma_smem_bytes(D), dkv_qtile(D),
+                         out);
 }

@@ -303,12 +303,14 @@ class ForwardTransformer(nn.Module):
         save_model_dir(self, path)
 
     @classmethod
-    def load_model(cls, path, device) -> 'ForwardTransformer':
-        """Load a dir written by either package onto ``device``."""
+    def load_model(cls, path, device='cuda') -> 'ForwardTransformer':
+        """Load a dir written by either package onto ``device`` (the card
+        unless the caller names another)."""
         return load_model_dir(cls, path, device)
 
     @classmethod
-    def from_config(cls, config: dict, device) -> 'ForwardTransformer':
-        """A model of this config on ``device``, parameters uninitialized
-        (``init_params`` or ``load_state_dict`` fill them)."""
+    def from_config(cls, config: dict, device='cuda') -> 'ForwardTransformer':
+        """A model of this config on ``device`` (the card unless the caller
+        names another), parameters uninitialized (``init_params`` or
+        ``load_state_dict`` fill them)."""
         return cls(**config).to(device)

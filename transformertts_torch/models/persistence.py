@@ -15,6 +15,7 @@ Layouts, JAX (Keras) → PyTorch, by leaf:
 
 Transposes are exact, so npz → PyTorch → npz round-trips bit for bit.
 """
+import subprocess
 from pathlib import Path
 from typing import Dict
 
@@ -84,21 +85,29 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def save_model_dir(model, path) -> Path:
-    """Write ``config.yaml`` + ``model_weights.npz`` under ``path``."""
+    """Write ``config.yaml`` + ``model_weights.npz`` under ``path``; the
+    config carries ``git describe --always`` as ``git_hash`` where git can
+    tell it, as the JAX package's does."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     config = dict(model.config)
     config['alphabet'] = ''.join(model.symbols)
     config['step'] = int(model.step)
+    try:
+        config['git_hash'] = subprocess.check_output(
+            ['git', 'describe', '--always'], stderr=subprocess.DEVNULL).strip().decode()
+    except (OSError, subprocess.CalledProcessError):
+        pass
     with open(path / 'config.yaml', 'w') as f:
         yaml.safe_dump(config, f, allow_unicode=True)
     np.savez(path / 'model_weights.npz', **params_to_jax(model.state_dict()))
     return path
 
 
-def load_model_dir(cls, path, device):
-    """Rebuild a model of type ``cls`` on ``device`` from a model dir; every
-    weight in the npz must fill a parameter and every parameter be filled."""
+def load_model_dir(cls, path, device='cuda'):
+    """Rebuild a model of type ``cls`` on ``device`` (the card unless the
+    caller names another) from a model dir; every weight in the npz must fill
+    a parameter and every parameter be filled."""
     path = Path(path)
     with open(path / 'config.yaml') as f:
         config = yaml.safe_load(f)

@@ -6,7 +6,9 @@ of at most ``max_batch``. Each chunk is padded to bucketed shapes (tokens to
 a multiple of 32, batch to a power of two, frames to a multiple of 128) and
 runs on the model's device: the encoder, then the durations come to the host
 to size the frame budget, then one decode → mel inversion → Griffin-Lim
-pass. Each wav is trimmed on the host to its own predicted length.
+pass. Each wav is trimmed on the host to its own predicted length, at
+least one frame, as ``predict`` keeps: an untrained model's durations can
+all round to zero.
 """
 from typing import List, Sequence
 
@@ -33,8 +35,9 @@ def synthesize_lines(model, audio, lines: Sequence[str],
                      speed_regulator: float = 1.0, n_iter: int = None,
                      max_batch: int = 32) -> List[np.ndarray]:
     """Synthesize many sentences on ``model.device``; returns float32 wavs
-    (peak-normalized to [-1, 1]) in input order. A line that tokenizes to
-    nothing gives an empty wav."""
+    (peak-normalized to [-1, 1]) in input order, each at least ``hop_length``
+    samples long. A line that tokenizes to nothing gives an empty wav, as in
+    the JAX package."""
     n_iter = n_iter if n_iter is not None else audio.griffin_lim_iters
     silence = audio.silence_level()
     scalar = float(np.float32(1.0 / speed_regulator))
@@ -62,5 +65,6 @@ def synthesize_lines(model, audio, lines: Sequence[str],
         mel = model.mask_mel_to_silence(dec, silence)
         wav = model.peak_normalize(audio.mels_to_waveforms(mel, n_iter)).cpu().numpy()
         for row, (orig_idx, _) in enumerate(chunk):
-            wavs[orig_idx] = wav[row, :(int(totals[row]) - 1) * audio.hop_length]
+            frames_kept = max(1, int(totals[row]) - 1)
+            wavs[orig_idx] = wav[row, :frames_kept * audio.hop_length]
     return wavs

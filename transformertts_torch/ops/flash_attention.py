@@ -360,23 +360,35 @@ flash_attention_fwd_lse.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
-DKV_RESOURCES = ('registers', 'spill_bytes', 'static_smem_bytes', 'dynamic_smem_bytes',
-                 'blocks_per_sm', 'threads', 'query_tile')
+_RESOURCES = ('registers', 'spill_bytes', 'static_smem_bytes', 'dynamic_smem_bytes',
+              'blocks_per_sm', 'threads')
+DQ_RESOURCES = _RESOURCES + ('key_tile',)
+DKV_RESOURCES = _RESOURCES + ('query_tile',)
+
+
+def _resources(name: str, keys: tuple, d: int) -> dict:
+    """What the bfloat16 kernel of the C entry ``name`` uses at head width
+    ``d`` on the card, as ``cudaFuncGetAttributes`` and the occupancy
+    calculator report it (spill bytes are its local memory a thread)."""
+    from transformertts_torch.ops import build
+    fn = getattr(build.load('flash_attention_bwd'), name)
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(keys))()
+    err = fn(d, out)
+    if err != 0:
+        raise RuntimeError(f'{name}({d}) failed: error {err}')
+    return dict(zip(keys, out))
+
+
+def dq_resources(d: int) -> dict:
+    """K3's bfloat16 kernel at head width ``d``, keyed by ``DQ_RESOURCES``."""
+    return _resources('flash_attention_bwd_dq_resources', DQ_RESOURCES, d)
 
 
 def dkv_resources(d: int) -> dict:
-    """What the bfloat16 K4 kernel for head width ``d`` uses on the card, as
-    ``cudaFuncGetAttributes`` and the occupancy calculator report it (spill
-    bytes are its local memory a thread), keyed by ``DKV_RESOURCES``."""
-    from transformertts_torch.ops import build
-    fn = build.load('flash_attention_bwd').flash_attention_bwd_dkv_resources
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(DKV_RESOURCES))()
-    err = fn(d, out)
-    if err != 0:
-        raise RuntimeError(f'flash_attention_bwd_dkv_resources({d}) failed: error {err}')
-    return dict(zip(DKV_RESOURCES, out))
+    """K4's bfloat16 kernel at head width ``d``, keyed by ``DKV_RESOURCES``."""
+    return _resources('flash_attention_bwd_dkv_resources', DKV_RESOURCES, d)
 
 
 class _FlashAttention(torch.autograd.Function):

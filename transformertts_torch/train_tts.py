@@ -8,14 +8,15 @@ port's copy of the JAX package's host data pipeline), one teacher-forced
 Adam step a batch with the learning rate of the config's schedule, losses
 logged one step late (so
 reading them never waits on the step just queued), target-vs-predicted
-duration histograms per symbol, periodic validation with mel images,
-training checkpoints every ``checkpoint_frequency`` steps in the JAX
-package's layout (resume is running the same command), ``model_step_N``
-model dirs that either package loads, and mels of the test sentences.
-As in the JAX CLI, a failed validation is printed and training goes on;
-``main`` returns the validation losses by step, so a caller can tell.
-Mel images need matplotlib and are left out where it is not installed;
-TensorBoard audio and the profiler window of the JAX CLI are not ported.
+duration histograms per symbol, periodic validation with mel images and
+Griffin-Lim wavs of one target and its prediction, training checkpoints
+every ``checkpoint_frequency`` steps in the JAX package's layout (resume is
+running the same command), ``model_step_N`` model dirs that either package
+loads, and mels and wavs of the test sentences. As in the JAX CLI, a failed
+validation is printed and training goes on; ``main`` returns the validation
+losses by step, so a caller can tell. Mel images need matplotlib and are
+left out where it is not installed; the profiler window of the JAX CLI is
+not ported.
 """
 import importlib.util
 import sys
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 import tqdm
 
+from transformertts_torch.audio import Audio
 from transformertts_torch.data.datasets import TTSDataset, TTSPreprocessor
 from transformertts_torch.training import checkpointing
 from transformertts_torch.utils.config import TrainingConfigManager
@@ -50,11 +52,14 @@ def validate(trainer, val_dataset, summary_manager, step, plots: bool):
         return None
     summary_manager.add_scalar('Validation/loss', total / n, step)
     real = batch['fname'] != ''
-    if plots and real.any():
+    if real.any():
         idx = int(np.argmax(real))
-        summary_manager.add_image('Validation/target_mel', mel_png(batch['mel'][idx]), step)
-        summary_manager.add_image('Validation/pred_mel',
-                                  mel_png(aux['mel_pred'][idx].cpu().numpy()), step)
+        target, pred = batch['mel'][idx], aux['mel_pred'][idx].float().cpu().numpy()
+        if plots:
+            summary_manager.add_image('Validation/target_mel', mel_png(target), step)
+            summary_manager.add_image('Validation/pred_mel', mel_png(pred), step)
+        summary_manager.display_audio('Validation/target_wav', target, step)
+        summary_manager.display_audio('Validation/pred_wav', pred, step)
     return total / n
 
 
@@ -79,7 +84,7 @@ def log_duration_histograms(model, fname_durs, summary_manager, step):
 
 
 @ignore_exception
-def predict_test_sentences(model, summary_manager, config, step):
+def predict_test_sentences(model, summary_manager, config, step, plots: bool):
     path = Path(config.get('test_sentences_file', 'config/test_sentences.txt'))
     if not path.exists():
         path = Path('config/test_sentences.txt')
@@ -87,8 +92,10 @@ def predict_test_sentences(model, summary_manager, config, step):
         return
     for i, text in enumerate(path.read_text().splitlines()):
         if text.strip():
-            summary_manager.add_image(f'TestSentences/{i}_mel',
-                                      mel_png(model.predict(text)['mel']), step)
+            mel = model.predict(text)['mel']
+            if plots:
+                summary_manager.add_image(f'TestSentences/{i}_mel', mel_png(mel), step)
+            summary_manager.display_audio(f'TestSentences/{i}_wav', mel, step)
 
 
 def main(argv=None) -> dict:
@@ -126,7 +133,8 @@ def main(argv=None) -> dict:
     val_data = TTSDataset.from_config(cm, prep, kind='valid').get_dataset(
         bucket_batch_sizes=config['val_bucket_batch_size'],
         bucket_boundaries=config['bucket_boundaries'], shuffle=False)
-    summary_manager = SummaryManager(model, cm.log_dir, config)
+    summary_manager = SummaryManager(model, cm.log_dir, config,
+                                     audio=Audio.from_config(config))
     plots = importlib.util.find_spec('matplotlib') is not None
     if not plots:
         print('matplotlib is not installed: no mel images in the logs')
@@ -186,8 +194,8 @@ def main(argv=None) -> dict:
                 summary_manager.add_scalar('Meta/validation_time', result[1], step)
                 if result[0] is not None:
                     validation[step] = result[0]
-        if plots and step % pred_freq == 0 and step >= pred_start:
-            predict_test_sentences(model, summary_manager, config, step)
+        if step % pred_freq == 0 and step >= pred_start:
+            predict_test_sentences(model, summary_manager, config, step, plots)
     if pending is not None:
         log_step(*pending)
     checkpointing.save_checkpoint(cm.weights_dir, model, trainer.optimizer, trainer.step,

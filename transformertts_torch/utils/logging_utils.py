@@ -110,12 +110,14 @@ class SummaryManager:
         self.add_image(tag, mel_png(np.asarray(mel)), step)
 
     @ignore_exception
-    def display_audio(self, tag: str, mel: np.ndarray, step: int):
+    def display_audio(self, tag: str, mel: np.ndarray, step: int, device=None):
         """Griffin-Lim a predicted mel into TensorBoard audio
-        (reference logging_utils.py:195-200). ``mel`` is (T, C)."""
+        (reference logging_utils.py:195-200). ``mel`` is (T, C). Griffin-Lim
+        runs on ``device``, by default the model's."""
         if self.audio is None:
             return
-        wav = np.asarray(self.audio.reconstruct_waveform(np.asarray(mel).T))
+        device = self.model.device if device is None else device
+        wav = self.audio.reconstruct_waveform(np.asarray(mel).T, device=device)
         self.add_audio(tag, wav, int(self.audio.config['sampling_rate']), step)
 
     @ignore_exception

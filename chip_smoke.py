@@ -41,9 +41,11 @@ prints no result):
 7. featurization kernel: the fused log-mel frontend (K5) against
    ``fused_log_mel_plain`` in float32 (the JAX test's settings, the
    published ones, a window shorter than n_fft, a hop that does not divide
-   n_fft, frame counts that are not a multiple of 64), then timed with the
-   plain version and ``torch.stft`` (cuFFT) at B16 x 262,144 and 131,072
-   samples;
+   n_fft, frame counts that are not a multiple of 64, the WaveRNN config's
+   n_fft 2048 at hop 275, and n_fft 256), what it uses on the card for each
+   n_fft (registers, spill bytes, shared memory, blocks an SM), then timed
+   with the plain version and ``torch.stft`` (cuFFT) at B16 x 262,144 and
+   131,072 samples;
 8. featurization slice: ``transformertts_torch.create_training_data`` (its
    ``main``) over 64 seeded synthetic LJSpeech-like clips of 1-10 s, with
    the K5 launch count, the files it writes, one clip's mel against the
@@ -52,10 +54,9 @@ prints no result):
 9. the last three lines: the kernels' JSON record (each kernel's time, its
    plain version's, one PyTorch library call's that computes the same
    function, and its bound: the larger of the FLOPs the function needs
-   (for K5 an FFT's, not its kernel's DFT as GEMMs) over the card's peak
-   rate for their type and its bytes, each input read once and each output
-   written once, over 3.35 TB/s), the card's name and power limit, then the
-   contract line.
+   (for K5 an FFT's) over the card's peak rate for their type and its
+   bytes, each input read once and each output written once, over
+   3.35 TB/s), the card's name and power limit, then the contract line.
 """
 import json
 import math
@@ -698,23 +699,28 @@ def _log_mel_library(wav, sr, n_fft, hop, win, n_mels, f_min, f_max, clip_min=1e
 
 
 def log_mel_kernel_phase() -> dict:
-    """K5 against its plain version in float32, then timed with the plain
-    version and the library call at featurization's bucket shapes."""
+    """K5 against its plain version in float32, what it uses on the card for
+    each FFT size, then timed with the plain version and the library call at
+    featurization's bucket shapes."""
     from transformertts_torch.ops.fused_log_mel import (fused_log_mel, fused_log_mel_plain,
-                                                        kernel_layout)
+                                                        kernel_layout, kernel_resources)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     sr = 22050
-    # (b, samples, n_fft, hop, win, mels): the JAX test's settings, the
-    # published ones, win < n_fft, a hop that does not divide n_fft, frame
-    # counts off a multiple of 64, and a featurization bucket
-    cases = [(1, sr // 2, 512, 128, 512, 20), (3, sr // 4, 512, 128, 512, 20),
-             (2, sr, 1024, 256, 1024, 80), (3, 30000, 1024, 256, 800, 80),
-             (2, 40000, 1024, 300, 1024, 80), (4, 777, 1024, 256, 1024, 80),
-             (16, 262144 - 1024, 1024, 256, 1024, 80)]
+    # (b, samples, n_fft, hop, win, mels, f_min, f_max): the JAX test's
+    # settings, the published ones, win < n_fft, a hop that does not divide
+    # n_fft, frame counts off a multiple of 64, a featurization bucket,
+    # config/data_config_wavernn.yaml's (f_max None: the Nyquist frequency)
+    # and the kernel's smallest FFT
+    cases = [(1, sr // 2, 512, 128, 512, 20, 0, 8000), (3, sr // 4, 512, 128, 512, 20, 0, 8000),
+             (2, sr, 1024, 256, 1024, 80, 0, 8000), (3, 30000, 1024, 256, 800, 80, 0, 8000),
+             (2, 40000, 1024, 300, 1024, 80, 0, 8000), (4, 777, 1024, 256, 1024, 80, 0, 8000),
+             (16, 262144 - 1024, 1024, 256, 1024, 80, 0, 8000),
+             (4, 60000, 2048, 275, 1100, 80, 40, None), (3, sr // 2, 256, 64, 256, 40, 0, 8000)]
     worst = 0.0
-    for b, n, n_fft, hop, win, mels in cases:
+    resources = {}
+    for b, n, n_fft, hop, win, mels, f_min, f_max in cases:
         wav = _log_mel_case(gen, b, n, n_fft)
-        args = (sr, n_fft, hop, win, mels, 0, 8000)
+        args = (sr, n_fft, hop, win, mels, f_min, f_max)
         out = fused_log_mel(wav, *args)
         torch.cuda.synchronize()
         ref = fused_log_mel_plain(wav, *args)
@@ -723,8 +729,21 @@ def log_mel_kernel_phase() -> dict:
         torch.testing.assert_close(out, ref, **LOG_MEL_TOL)
         err = (out - ref).abs().max().item()
         worst = max(worst, err)
-        log(f'K5 B{b} x {n} samples, n_fft {n_fft} hop {hop} win {win} mels {mels}: '
-            f'{out.shape[1]} frames, max |kernel - plain| {err:.3g}')
+        log(f'K5 B{b} x {n} samples, n_fft {n_fft} hop {hop} win {win} mels {mels} f_min '
+            f'{f_min} f_max {f_max}: {out.shape[1]} frames, max |kernel - plain| {err:.3g}')
+        if (n_fft, hop) not in resources:
+            layout = kernel_layout(str(wav.device), *args[:2], win, mels, f_min, f_max)
+            r = kernel_resources(n_fft, hop, layout.k_hi - layout.k_lo)
+            log(f'K5 at n_fft {n_fft} hop {hop} ({layout.k_hi - layout.k_lo} bins): '
+                f'{r["registers"]} registers a thread, {r["spill_bytes"]} spill (local) bytes, '
+                f'{r["static_smem_bytes"]} + {r["dynamic_smem_bytes"]} B of shared memory a '
+                f'block, {r["blocks_per_sm"]} block(s) of {r["threads"]} threads an SM')
+            # the configs' settings keep the kernel in registers; every
+            # size fits a block on an SM
+            spills = r['spill_bytes'] != 0 and (n_fft, hop) in ((1024, 256), (2048, 275))
+            if spills or r['blocks_per_sm'] < 1:
+                raise AssertionError(f'K5 at n_fft {n_fft} hop {hop} spills or does not fit: {r}')
+            resources[n_fft, hop] = r
     times = {}
     for t in (262144, 131072):
         wav = torch.randn(16, t, device=DEVICE, generator=gen) * 0.3
@@ -739,8 +758,7 @@ def log_mel_kernel_phase() -> dict:
         nnz = int((layout.fb != 0).sum())
         # the work the function needs: a real FFT a frame (2.5·n·log2 n) and
         # the sparse mel product over the filterbank's nonzero weights, in
-        # float32; the wav, those weights and the log-mel, in float32. The
-        # kernel's DFT as GEMMs does some 40 times the FFT's operations.
+        # float32; the wav, those weights and the log-mel, in float32
         limit = bound(16 * n_frames * (2.5 * 1024 * math.log2(1024) + 2 * nnz),
                       4 * (16 * t + nnz + 16 * n_frames * 80), 'f32')
         log(f'K5 B16 x {t} samples ({n_frames} frames): kernel {ms:.4f} ms, plain '
@@ -748,7 +766,7 @@ def log_mel_kernel_phase() -> dict:
             f'{lib_err:.3g}), bound {limit["bound_ms"]:.4f} ms ({limit["bound_by"]})')
         times[t] = dict(shape=[16, t], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                         **limit)
-    return {'max_abs_err': worst, 'times': times}
+    return {'max_abs_err': worst, 'times': times, 'resources': resources[1024, 256]}
 
 
 def _synthetic_corpus(work: Path, n_clips: int, seed: int = SEED):
@@ -913,6 +931,7 @@ def main():
         'shape': big['shape'],
         'half_ms': small['ms'], 'half_plain_ms': small['plain_ms'],
         'half_library_ms': small['library_ms'], 'half_bound_ms': small['bound_ms'],
+        **log_mel['resources'],
     })
     log(f'training: {train["ms_per_step"]:.2f} ms/step, {train["frames_per_s"]:.1f} trained '
         f'mel frames/s at B32 x 512 frames')

@@ -16,6 +16,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     'transformertts_torch',
     'transformertts_torch.models',
+    'transformertts_torch.models.convert',
     'transformertts_torch.models.forward_tts',
     'transformertts_torch.models.persistence',
     'transformertts_torch.models.synthesis',
@@ -77,6 +78,8 @@ def test_port_imports_no_jax():
     assert not [m for m in loaded if m == 'jax' or m.startswith(('jax.', 'jaxlib'))]
     assert not [m for m in loaded if m.startswith('transformertts_tpu')]
     assert 'transformertts_torch.create_training_data' in loaded
+    # h5py is imported only when an hdf5-only model dir is read
+    assert 'transformertts_torch.models.convert' in loaded and 'h5py' not in loaded
 
 
 def test_chip_smoke_imports_nothing_of_jax_itself():

@@ -1,218 +1,316 @@
-// K5: the fused log-mel frontend for Hopper (sm_90a), float32.
+// K5: the fused log-mel frontend for Hopper (sm_90a), float32, in FFT form.
 //
 // Replaces the Pallas TPU kernel transformertts_tpu/ops/stft_pallas.py::_kernel
 // (called through fused_log_mel -> _fused_log_mel, :69-126): framing, the
-// windowed one-sided DFT as two GEMMs against cos/-sin bases, the magnitude
-// sqrt(re^2 + im^2 + 1e-30), the mel projection and log(max(mel, clip_min)),
-// (B, T) centre-padded wav -> (B, F, n_mels), F = 1 + (T - n_fft) / hop.
+// windowed one-sided DFT, the magnitude sqrt(re^2 + im^2 + 1e-30), the mel
+// projection and log(max(mel, clip_min)), (B, T) centre-padded wav ->
+// (B, F, n_mels), F = 1 + (T - n_fft) / hop. n_fft is a power of two from 256
+// to 2048.
 //
 // Its bound on the card: some 7 us at B16 x 262,144 samples. The function
 // needs a real FFT a frame (2.5 * n_fft * log2(n_fft) FLOPs) and the sparse
 // mel product, about 20 FLOPs for each of the 1 KB of new wav and 320 B of
 // log-mel a frame at the published settings (n_fft 1024, hop 256, 80 mels up
 // to 8 kHz): the float32 ridge, where bytes and operations come out even.
-// This design does not reach it. It computes the DFT as GEMMs over the 371
-// bins that carry mel weight, 4 * 1024 * 371 FLOPs a frame, some 40 times
-// the FFT's, so its own float32 FMAs bound it (67 TFLOP/s on the SIMT
-// cores; the parity bar, atol 2e-4 and rtol 1e-3 on the log, rules out plain
-// TF32). An FFT-form kernel is the way to the bound.
+// The TPU kernel computed the transform as GEMMs against DFT bases, as the
+// port's first kernel did (4 * n_fft * 371 FLOPs a frame, some 40 times an
+// FFT's). This one does an FFT, so what bounds it is shared memory: each pass
+// moves a frame's points through it once.
 //
-// Design, and how it differs from the TPU kernel:
-// - One block per (clip, 64-frame tile). The block copies its wav span,
-//   (63 * hop + n_fft) floats (68.6 KB at hop 256), from the padded wav into
-//   shared memory once; frames are read out of it at hop-strided offsets,
-//   so the 4x-redundant frame matrix never exists anywhere. The TPU pre-cut
-//   overlapping chunks with an XLA gather and padded bins and mels to 128
-//   (its lane layout); here the block reads the wav directly, masks the
-//   ragged last frame tile, and writes (B, F, n_mels) unpadded.
-// - Only the bins that carry mel weight are transformed: the wrapper passes
-//   the windowed bases for bins [k_lo, k_lo + 128 * n_tiles) as tiles of
-//   128 bins, (tile, n_fft, cos 128 | sin 128), zero past the last needed
-//   bin. A bin without mel weight adds exactly 0 to every mel, so the result
-//   is the full transform's.
-// - Each tile's bases stream through shared memory in chunks of 16 rows,
-//   double-buffered with cp.async. A thread owns 8 frames x 4 bins of Re and
-//   Im (64 registers); per row it reads its 8 frame samples (one address a
-//   warp: broadcasts) and a float4 each of cos and sin.
-// - The tile's magnitudes go to shared memory (over the spent basis
-//   buffers) and fold into the mel accumulator through the filterbank's
-//   nonzero band of each mel (each bin lies in at most two Slaney bands), so
-//   the mel product costs some 2 FLOPs a bin instead of 2 * n_mels. A thread
-//   owns one frame and every fourth mel, in registers, to the end.
+// Design:
+// - One block per (clip, 64-frame tile) of 256 threads. The block copies its
+//   wav span, (63 * hop + n_fft) floats (68.6 KB at hop 256, 77.5 KB at
+//   n_fft 2048 and hop 275), into shared memory once, with the window, the
+//   twiddle tables and the split-step twiddles the wrapper builds on the host
+//   in float64 and rounds to float32 once. Frames are read out of the span at
+//   hop-strided offsets: the frame matrix exists nowhere.
+// - The real FFT of N = n_fft points is one complex FFT of M = N / 2 points
+//   on z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1], the window applied as the
+//   frame is loaded. M / 8 threads own a frame, 8 points a thread in
+//   registers, and 256 threads transform 2048 / M frames at once.
+// - The complex FFT runs Stockham passes, radix 8 while 8 divides what is
+//   left of M, then one pass of radix 4 or 2 (M 128: 8 8 2; 256: 8 8 4;
+//   512: 8 8 8; 1024: 8 8 8 2). A pass of radix R with stride Ns reads
+//   points j + r M / R, multiplies by exp(-2 pi i (j mod Ns) r / (Ns R)) from
+//   its table (entry (j mod Ns) (R - 1) + r - 1), does the R-point DFT and
+//   writes point r to ((j - j mod Ns) R + j mod Ns + r Ns): the output is in
+//   natural order. Passes exchange points through one shared buffer a
+//   frame, whose index i is stored at i ^ ((i >> 3) & 15): every load and
+//   store of every pass is free of bank conflicts (float2, half-warps).
+// - The split step gives the bins that carry mel weight, [k_lo, k_hi):
+//   X[k] = (Z[k] + Z*[M - k]) / 2 - i exp(-2 pi i k / N) (Z[k] - Z*[M - k]) / 2.
+//   Their magnitudes go to shared memory, and each mel folds over its
+//   filterbank's nonzero band (each bin lies in at most two Slaney bands):
+//   some 2 FLOPs a bin instead of 2 * n_mels. The log goes straight to the
+//   unpadded (B, F, n_mels) output; the ragged last tile is masked.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE_F = 64;     // frames a block
-constexpr int TILE_BINS = 128; // bins a basis tile
-constexpr int K_CHUNK = 16;    // basis rows staged a step
+constexpr int TILE_F = 64;   // frames a block
 constexpr int THREADS = 256;
-constexpr int FRAMES_PER_WARP = TILE_F / (THREADS / 32);  // 8
-constexpr int MAG_ROW = TILE_BINS + 4;  // magnitude tile row, float4-aligned
-constexpr int CHUNK_FLOATS = K_CHUNK * 2 * TILE_BINS;     // cos | sin rows
-constexpr int STAGE_FLOATS = (2 * CHUNK_FLOATS > TILE_F * MAG_ROW)
-                             ? 2 * CHUNK_FLOATS : TILE_F * MAG_ROW;
-constexpr int MAX_MELS = 80;
-constexpr int MELS_PER_THREAD = MAX_MELS / 4;  // every fourth mel of a frame
+constexpr int PTS = 8;       // complex points a thread holds
+constexpr int BUF_POINTS = THREADS * PTS;  // the FFT buffer: 2048 / M frames of M points
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(src));
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+    return make_float2(a.x + b.x, a.y + b.y);
 }
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+    return make_float2(a.x - b.x, a.y - b.y);
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+    return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 mul_neg_i(float2 a) { return make_float2(a.y, -a.x); }
+
+// where point i of a frame's buffer is stored
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 3) & 15); }
+
+// In-place R-point DFTs of v[0], v[S], ..., v[(R - 1) S], natural order in and out.
+template <int S>
+__device__ __forceinline__ void dft2(float2* v) {
+    const float2 a = v[0], b = v[S];
+    v[0] = cadd(a, b);
+    v[S] = csub(a, b);
 }
 
-// Copy basis chunk c of a tile (CHUNK_FLOATS contiguous floats) to shared memory.
-__device__ __forceinline__ void stage_chunk(float* dst, const float* tile, int c) {
-    const float4* src = reinterpret_cast<const float4*>(tile + (size_t)c * CHUNK_FLOATS);
-    float4* d = reinterpret_cast<float4*>(dst);
+template <int S>
+__device__ __forceinline__ void dft4(float2* v) {
+    const float2 a0 = cadd(v[0], v[2 * S]), a1 = csub(v[0], v[2 * S]);
+    const float2 a2 = cadd(v[S], v[3 * S]), a3 = mul_neg_i(csub(v[S], v[3 * S]));
+    v[0] = cadd(a0, a2);
+    v[2 * S] = csub(a0, a2);
+    v[S] = cadd(a1, a3);
+    v[3 * S] = csub(a1, a3);
+}
+
+__device__ __forceinline__ void dft8(float2* v) {
+    constexpr float H = 0.70710678118654752f;  // sqrt(1/2)
+    dft4<2>(v);      // the even points' DFT, at v[0], v[2], v[4], v[6]
+    dft4<2>(v + 1);  // the odd points', at v[1], v[3], v[5], v[7]
+    const float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+    const float2 o0 = v[1];
+    const float2 o1 = make_float2(H * (v[3].x + v[3].y), H * (v[3].y - v[3].x));  // exp(-i pi/4)
+    const float2 o2 = mul_neg_i(v[5]);                                            // exp(-i pi/2)
+    const float2 o3 = make_float2(H * (v[7].y - v[7].x), -H * (v[7].x + v[7].y)); // exp(-3i pi/4)
+    v[0] = cadd(e0, o0); v[4] = csub(e0, o0);
+    v[1] = cadd(e1, o1); v[5] = csub(e1, o1);
+    v[2] = cadd(e2, o2); v[6] = csub(e2, o2);
+    v[3] = cadd(e3, o3); v[7] = csub(e3, o3);
+}
+
+// One Stockham pass of radix R and stride NS over an M-point frame. A thread
+// holds points t + s M / 8, s < 8: butterfly b < 8 / R takes j = t + b M / 8
+// and its points v[b + r (8 / R)]. The first pass takes them from registers.
+template <int M, int R, int NS>
+__device__ __forceinline__ void fft_pass(float2 (&v)[PTS], float2* buf, const float2* tw,
+                                         int t) {
+    constexpr int TPF = M / PTS, S = PTS / R;
+    if constexpr (NS > 1) {
 #pragma unroll
-    for (int r = 0; r < CHUNK_FLOATS / 4 / THREADS; ++r)
-        cp_async16(d + threadIdx.x + r * THREADS, src + threadIdx.x + r * THREADS);
-    cp_async_commit();
+        for (int s = 0; s < PTS; ++s) v[s] = buf[swz(t + s * TPF)];
+    }
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+        if constexpr (NS > 1) {
+            const float2* w = tw + ((t + b * TPF) & (NS - 1)) * (R - 1);
+#pragma unroll
+            for (int r = 1; r < R; ++r) v[b + r * S] = cmul(v[b + r * S], w[r - 1]);
+        }
+        if constexpr (R == 8) dft8(v + b);
+        else if constexpr (R == 4) dft4<S>(v + b);
+        else dft2<S>(v + b);
+    }
+    __syncthreads();  // every point of the previous pass is read
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+        const int j = t + b * TPF, k = j & (NS - 1);
+        const int base = (j - k) * R + k;
+#pragma unroll
+        for (int r = 0; r < R; ++r) buf[swz(base + r * NS)] = v[b + r * S];
+    }
+    __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-fused_log_mel_kernel(const float* __restrict__ wav, int T, int n_frames, int hop, int n_fft,
-                     const float* __restrict__ basis, int n_tiles, int k_lo,
-                     const float* __restrict__ fb, int n_bins,
-                     const int* __restrict__ bands, int n_mels, float clip_min,
-                     float* __restrict__ out, int span_pad) {
+// The passes from stride NS on; pass tables start at NS - 1 in ``tw``.
+template <int M, int NS>
+__device__ __forceinline__ void fft_passes(float2 (&v)[PTS], float2* buf, const float2* tw,
+                                           int t) {
+    if constexpr (NS < M) {
+        constexpr int R = (M / NS >= 8) ? 8 : M / NS;
+        fft_pass<M, R, NS>(v, buf, tw + (NS - 1), t);
+        fft_passes<M, NS * R>(v, buf, tw, t);
+    }
+}
+
+// Shared memory a block, in bytes: the wav span, the FFT buffer, the window
+// pairs, the pass twiddles (M - 1, rounded to M), the split twiddles and the
+// magnitudes of the frames transformed at once.
+size_t smem_bytes(int m, int hop, int n_bins, int* span_pad) {
+    const int span = (TILE_F - 1) * hop + 2 * m;
+    *span_pad = (span + 3) / 4 * 4;
+    return (size_t)*span_pad * sizeof(float)
+        + (size_t)(BUF_POINTS + 2 * m + n_bins) * sizeof(float2)
+        + (size_t)(BUF_POINTS / m) * n_bins * sizeof(float);
+}
+
+template <int LOG_M>
+__global__ void __launch_bounds__(THREADS)
+fused_log_mel_kernel(const float* __restrict__ wav, int T, int n_frames, int hop,
+                     const float2* __restrict__ window, const float2* __restrict__ fft_tw,
+                     const float2* __restrict__ split_tw, int k_lo, int k_hi,
+                     const float* __restrict__ fb, const int* __restrict__ bands, int n_mels,
+                     float clip_min, float* __restrict__ out, int span_pad) {
+    constexpr int M = 1 << LOG_M;        // complex points: n_fft / 2
+    constexpr int TPF = M / PTS;         // threads a frame
+    constexpr int FPG = THREADS / TPF;   // frames transformed at once
+    const int n_bins = k_hi - k_lo;
     extern __shared__ float4 smem4[];
-    float* wav_s = reinterpret_cast<float*>(smem4);  // span_pad floats
-    float* stage = wav_s + span_pad;                 // basis chunks, then magnitudes
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int b = blockIdx.y;
+    float* wav_s = reinterpret_cast<float*>(smem4);                  // span_pad
+    float2* buf = reinterpret_cast<float2*>(wav_s + span_pad);       // FPG x M
+    float2* win_s = buf + BUF_POINTS;                                // M pairs
+    float2* tw_s = win_s + M;                                        // M - 1
+    float2* split_s = tw_s + M;                                      // n_bins
+    float* mag_s = reinterpret_cast<float*>(split_s + n_bins);       // FPG x n_bins
+
+    const int tid = threadIdx.x, b = blockIdx.y;
     const int f0 = blockIdx.x * TILE_F;
-    const int span = (TILE_F - 1) * hop + n_fft;
+    const int span = (TILE_F - 1) * hop + 2 * M;
     const float* row = wav + (size_t)b * T;
     const long long start = (long long)f0 * hop;
     for (int i = tid; i < span_pad; i += THREADS) {
         const long long j = start + i;
         wav_s[i] = (i < span && j < T) ? row[j] : 0.f;
     }
+    for (int i = tid; i < M; i += THREADS) win_s[i] = window[i];
+    for (int i = tid; i < M - 1; i += THREADS) tw_s[i] = fft_tw[i];
+    for (int i = tid; i < n_bins; i += THREADS) split_s[i] = split_tw[i];
+    __syncthreads();
 
-    const int mf = tid >> 2, mg = tid & 3;  // mel step: frame, mel phase
-    float mel[MELS_PER_THREAD];
+    const int g = tid / TPF, t = tid % TPF;  // frame slot, thread in the frame
+    float2* fbuf = buf + g * M;
+    float* mag = mag_s + g * n_bins;  // bins k_lo on
+    const int tile_frames = min(TILE_F, n_frames - f0);
+    for (int fg = 0; fg < tile_frames; fg += FPG) {
+        const float* x = wav_s + (fg + g) * hop;
+        float2 v[PTS];
 #pragma unroll
-    for (int j = 0; j < MELS_PER_THREAD; ++j) mel[j] = 0.f;
-
-    const int n_chunks = n_fft / K_CHUNK;
-    const int fw = warp * FRAMES_PER_WARP;
-    for (int t = 0; t < n_tiles; ++t) {
-        const float* tile = basis + (size_t)t * n_fft * 2 * TILE_BINS;
-        float re[FRAMES_PER_WARP][4], im[FRAMES_PER_WARP][4];
-#pragma unroll
-        for (int i = 0; i < FRAMES_PER_WARP; ++i)
-#pragma unroll
-            for (int u = 0; u < 4; ++u) re[i][u] = im[i][u] = 0.f;
-
-        __syncthreads();  // the previous tile's magnitudes are read, the wav is in
-        stage_chunk(stage, tile, 0);
-        for (int c = 0; c < n_chunks; ++c) {
-            if (c + 1 < n_chunks) {
-                stage_chunk(stage + ((c + 1) & 1) * CHUNK_FLOATS, tile, c + 1);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();
-            const float* buf = stage + (c & 1) * CHUNK_FLOATS;
-            const float* x = wav_s + fw * hop + c * K_CHUNK;
-#pragma unroll
-            for (int kk = 0; kk < K_CHUNK; ++kk) {
-                const float4 cs = *reinterpret_cast<const float4*>(
-                    buf + kk * 2 * TILE_BINS + lane * 4);
-                const float4 sn = *reinterpret_cast<const float4*>(
-                    buf + kk * 2 * TILE_BINS + TILE_BINS + lane * 4);
-#pragma unroll
-                for (int i = 0; i < FRAMES_PER_WARP; ++i) {
-                    const float a = x[i * hop + kk];
-                    re[i][0] = fmaf(a, cs.x, re[i][0]);
-                    re[i][1] = fmaf(a, cs.y, re[i][1]);
-                    re[i][2] = fmaf(a, cs.z, re[i][2]);
-                    re[i][3] = fmaf(a, cs.w, re[i][3]);
-                    im[i][0] = fmaf(a, sn.x, im[i][0]);
-                    im[i][1] = fmaf(a, sn.y, im[i][1]);
-                    im[i][2] = fmaf(a, sn.z, im[i][2]);
-                    im[i][3] = fmaf(a, sn.w, im[i][3]);
-                }
-            }
-            __syncthreads();  // this buffer is refilled two chunks on
+        for (int s = 0; s < PTS; ++s) {
+            const int n = t + s * TPF;
+            const float2 w = win_s[n];
+            v[s] = make_float2(w.x * x[2 * n], w.y * x[2 * n + 1]);
         }
+        fft_passes<M, 1>(v, fbuf, tw_s, t);
 
-        // magnitudes over the spent basis buffers
-#pragma unroll
-        for (int i = 0; i < FRAMES_PER_WARP; ++i) {
-            float4 m;
-            m.x = sqrtf(re[i][0] * re[i][0] + im[i][0] * im[i][0] + 1e-30f);
-            m.y = sqrtf(re[i][1] * re[i][1] + im[i][1] * im[i][1] + 1e-30f);
-            m.z = sqrtf(re[i][2] * re[i][2] + im[i][2] * im[i][2] + 1e-30f);
-            m.w = sqrtf(re[i][3] * re[i][3] + im[i][3] * im[i][3] + 1e-30f);
-            *reinterpret_cast<float4*>(stage + (fw + i) * MAG_ROW + lane * 4) = m;
+        // split step: Z[k] and Z*[M - k] (Z[M] = Z[0]) give bin k
+        for (int k = k_lo + t; k < k_hi; k += TPF) {
+            const float2 a = fbuf[swz(k & (M - 1))];
+            const float2 c = fbuf[swz((M - k) & (M - 1))];
+            const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+            const float2 o = make_float2(0.5f * (a.y + c.y), -0.5f * (a.x - c.x));
+            const float2 w = split_s[k - k_lo];
+            const float re = e.x + (w.x * o.x - w.y * o.y);
+            const float im = e.y + (w.x * o.y + w.y * o.x);
+            mag[k - k_lo] = sqrtf(re * re + im * im + 1e-30f);
         }
         __syncthreads();
 
-        // each mel's nonzero filterbank band, within this tile's bins
-        const int k0 = k_lo + t * TILE_BINS;
-        const float* mag = stage + mf * MAG_ROW;
-#pragma unroll
-        for (int j = 0; j < MELS_PER_THREAD; ++j) {
-            const int m = mg + 4 * j;
-            if (m < n_mels) {
-                const int lo = max(__ldg(bands + 2 * m), k0);
-                const int hi = min(__ldg(bands + 2 * m + 1), k0 + TILE_BINS);
-                const float* w = fb + (size_t)m * n_bins;
-                float acc = mel[j];
-                for (int k = lo; k < hi; ++k) acc = fmaf(mag[k - k0], __ldg(w + k), acc);
-                mel[j] = acc;
+        const int f = f0 + fg + g;
+        if (f < n_frames) {
+            float* o = out + ((size_t)b * n_frames + f) * n_mels;
+            for (int m = t; m < n_mels; m += TPF) {
+                const int lo = __ldg(bands + 2 * m), hi = __ldg(bands + 2 * m + 1);
+                const float* w = fb + (size_t)m * (M + 1);
+                float acc = 0.f;
+                for (int k = lo; k < hi; ++k) acc = fmaf(mag[k - k_lo], __ldg(w + k), acc);
+                o[m] = logf(fmaxf(acc, clip_min));
             }
         }
+        // the next group's first buffer store and magnitude write come after
+        // barriers that every thread reaches only once done here
     }
+}
 
-    const int f = f0 + mf;
-    if (f < n_frames) {
-        float* o = out + ((size_t)b * n_frames + f) * n_mels;
-#pragma unroll
-        for (int j = 0; j < MELS_PER_THREAD; ++j) {
-            const int m = mg + 4 * j;
-            if (m < n_mels) o[m] = logf(fmaxf(mel[j], clip_min));
-        }
-    }
+template <int LOG_M>
+int launch(const float* wav, int B, int T, int n_frames, int hop, const float* window,
+           const float* fft_tw, const float* split_tw, int k_lo, int k_hi, const float* fb,
+           const int* bands, int n_mels, float clip_min, float* out, cudaStream_t stream) {
+    int span_pad = 0;
+    const size_t smem = smem_bytes(1 << LOG_M, hop, k_hi - k_lo, &span_pad);
+    cudaError_t err = cudaFuncSetAttribute(fused_log_mel_kernel<LOG_M>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((n_frames + TILE_F - 1) / TILE_F, B);
+    fused_log_mel_kernel<LOG_M><<<grid, THREADS, smem, stream>>>(
+        wav, T, n_frames, hop, reinterpret_cast<const float2*>(window),
+        reinterpret_cast<const float2*>(fft_tw), reinterpret_cast<const float2*>(split_tw),
+        k_lo, k_hi, fb, bands, n_mels, clip_min, out, span_pad);
+    return (int)cudaGetLastError();
+}
+
+template <int LOG_M>
+int resources(int hop, int n_bins, int* out) {
+    int span_pad = 0, blocks = 0;
+    const size_t smem = smem_bytes(1 << LOG_M, hop, n_bins, &span_pad);
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncSetAttribute(fused_log_mel_kernel<LOG_M>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fused_log_mel_kernel<LOG_M>);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, fused_log_mel_kernel<LOG_M>, THREADS, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int values[6] = {attr.numRegs, (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
+                           (int)smem, blocks, THREADS};
+    for (int i = 0; i < 6; ++i) out[i] = values[i];
+    return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// wav (B, T) float32; basis (n_tiles, n_fft, 2 * 128); fb (n_mels, n_bins);
-// bands (n_mels, 2) int32 [lo, hi) of each mel's nonzero weights; out
-// (B, n_frames, n_mels). n_fft % 16 == 0, n_mels <= 80. Returns the CUDA
-// error: cudaFuncSetAttribute's when the block's shared memory, the wav span
-// of 63 * hop + n_fft floats plus the basis stage, is over the card's limit.
+// wav (B, T) float32; window (n_fft,) the padded window; fft_tw (n_fft/2 - 1,
+// 2) the pass twiddles; split_tw (k_hi - k_lo, 2) exp(-2 pi i k / n_fft); fb
+// (n_mels, 1 + n_fft/2); bands (n_mels, 2) int32 [lo, hi) of each mel's
+// nonzero weights, inside [k_lo, k_hi); out (B, n_frames, n_mels). n_fft is
+// 256, 512, 1024 or 2048. Returns the CUDA error: cudaFuncSetAttribute's when
+// the block's shared memory, the wav span of 63 * hop + n_fft floats and some
+// 20-30 KB of FFT buffer and tables, is over the card's limit.
 int fused_log_mel(const float* wav, int B, int T, int n_frames, int hop, int n_fft,
-                  const float* basis, int n_tiles, int k_lo, const float* fb, int n_bins,
-                  const int* bands, int n_mels, float clip_min, float* out, void* stream) {
-    if (n_mels < 1 || n_mels > MAX_MELS || n_fft % K_CHUNK != 0)
+                  const float* window, const float* fft_tw, const float* split_tw, int k_lo,
+                  int k_hi, const float* fb, const int* bands, int n_mels, float clip_min,
+                  float* out, void* stream) {
+    if (n_mels < 1 || k_lo < 0 || k_hi < k_lo || k_hi > n_fft / 2 + 1)
         return (int)cudaErrorInvalidValue;
-    const int span = (TILE_F - 1) * hop + n_fft;
-    const int span_pad = (span + 3) / 4 * 4;
-    const size_t smem = (size_t)(span_pad + STAGE_FLOATS) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(fused_log_mel_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((n_frames + TILE_F - 1) / TILE_F, B);
-    fused_log_mel_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        wav, T, n_frames, hop, n_fft, basis, n_tiles, k_lo, fb, n_bins, bands, n_mels,
-        clip_min, out, span_pad);
-    return (int)cudaGetLastError();
+    auto s = static_cast<cudaStream_t>(stream);
+    switch (n_fft) {
+        case 256: return launch<7>(wav, B, T, n_frames, hop, window, fft_tw, split_tw, k_lo,
+                                   k_hi, fb, bands, n_mels, clip_min, out, s);
+        case 512: return launch<8>(wav, B, T, n_frames, hop, window, fft_tw, split_tw, k_lo,
+                                   k_hi, fb, bands, n_mels, clip_min, out, s);
+        case 1024: return launch<9>(wav, B, T, n_frames, hop, window, fft_tw, split_tw, k_lo,
+                                    k_hi, fb, bands, n_mels, clip_min, out, s);
+        case 2048: return launch<10>(wav, B, T, n_frames, hop, window, fft_tw, split_tw, k_lo,
+                                     k_hi, fb, bands, n_mels, clip_min, out, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// What the kernel of this n_fft uses at this hop and count of bins, as the
+// card reports it: out = {registers a thread, local (spill) bytes a thread,
+// static and dynamic shared memory a block, blocks an SM, threads a block}.
+int fused_log_mel_resources(int n_fft, int hop, int n_bins, int* out) {
+    switch (n_fft) {
+        case 256: return resources<7>(hop, n_bins, out);
+        case 512: return resources<8>(hop, n_bins, out);
+        case 1024: return resources<9>(hop, n_bins, out);
+        case 2048: return resources<10>(hop, n_bins, out);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // extern "C"

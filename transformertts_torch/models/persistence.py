@@ -3,7 +3,9 @@
 A model dir is ``config.yaml`` (the constructor config, alphabet and step)
 plus ``model_weights.npz`` keyed by the JAX package's ``flatten_params``
 paths (``encoder/conv_0/sarn/mha/wq/kernel``, ...). Either package loads a
-dir the other wrote.
+dir the other wrote. A dir with hdf5 weights only (the reference's
+``model_weights.hdf5``, or the JAX package's ``weights_format='hdf5'``) loads
+through ``models/convert.py``, which needs h5py.
 
 Layouts, JAX (Keras) → PyTorch, by leaf:
 
@@ -104,22 +106,43 @@ def save_model_dir(model, path) -> Path:
     return path
 
 
+def _hdf5_weights(path: Path) -> Path:
+    """``model_weights.hdf5``, else the first ``*.hdf5`` then ``*.h5`` in
+    sorted order, as the JAX package picks them."""
+    canonical = path / 'model_weights.hdf5'
+    if canonical.exists():
+        return canonical
+    candidates = sorted(path.glob('*.hdf5')) + sorted(path.glob('*.h5'))
+    if not candidates:
+        raise FileNotFoundError(f'no model weights under {path}: neither '
+                                f'model_weights.npz nor an hdf5 file')
+    return candidates[0]
+
+
 def load_model_dir(cls, path, device='cuda'):
     """Rebuild a model of type ``cls`` on ``device`` (the card unless the
-    caller names another) from a model dir; every weight in the npz must fill
-    a parameter and every parameter be filled."""
+    caller names another) from a model dir: ``model_weights.npz`` where it
+    is, else its hdf5 weights (legacy Keras-2 or Keras-3 layout, read with
+    h5py). Every weight must fill a parameter and every parameter be filled."""
     path = Path(path)
     with open(path / 'config.yaml') as f:
         config = yaml.safe_load(f)
-    npz = path / 'model_weights.npz'
-    if not npz.exists():
-        raise FileNotFoundError(
-            f'no model_weights.npz under {path}: convert hdf5 checkpoints '
-            f'once with the JAX package (models/convert.py) and save as npz')
     model = cls(**config)
-    with np.load(npz) as data:
-        state = params_from_jax({k: data[k] for k in data.files})
-    model.load_state_dict(state, strict=True)
+    npz = path / 'model_weights.npz'
+    if npz.exists():
+        with np.load(npz) as data:
+            flat = {k: data[k] for k in data.files}
+    else:
+        weights = _hdf5_weights(path)
+        try:
+            import h5py  # noqa: F401  (the readers of models/convert.py use it)
+        except ImportError as e:
+            raise ImportError(f'{path} holds hdf5 weights only ({weights.name}): reading '
+                              f'them needs h5py') from e
+        from transformertts_torch.models.convert import read_forward_weights
+        template = {k: v.shape for k, v in params_to_jax(model.state_dict()).items()}
+        flat = read_forward_weights(weights, model.config, template)
+    model.load_state_dict(params_from_jax(flat), strict=True)
     model.to(device)
     model.step = int(config.get('step', 0))
     return model

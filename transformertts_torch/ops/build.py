@@ -20,6 +20,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / 'torch_ker
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
+# what a kernel uses on the card, as its library's resource entries report it
+RESOURCES = ('registers', 'spill_bytes', 'static_smem_bytes', 'dynamic_smem_bytes',
+             'blocks_per_sm', 'threads')
+
 _loaded = {}
 
 
@@ -79,3 +83,18 @@ def build_all(names) -> list:
     names = list(names)
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         return list(pool.map(build, names))
+
+
+def resources(name: str, entry: str, args: tuple, keys: tuple = RESOURCES) -> dict:
+    """What a kernel of ``csrc/<name>.cu`` uses on the card: its C entry
+    ``entry`` takes the int ``args`` and fills one int for each of ``keys``
+    from ``cudaFuncGetAttributes`` and the occupancy calculator (spill bytes
+    are its local memory a thread)."""
+    fn = getattr(load(name), entry)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(keys))()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f'{entry}{tuple(args)} failed: CUDA error {err}')
+    return dict(zip(keys, out))

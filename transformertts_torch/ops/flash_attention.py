@@ -360,35 +360,20 @@ flash_attention_fwd_lse.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
-_RESOURCES = ('registers', 'spill_bytes', 'static_smem_bytes', 'dynamic_smem_bytes',
-              'blocks_per_sm', 'threads')
-DQ_RESOURCES = _RESOURCES + ('key_tile',)
-DKV_RESOURCES = _RESOURCES + ('query_tile',)
-
-
-def _resources(name: str, keys: tuple, d: int) -> dict:
-    """What the bfloat16 kernel of the C entry ``name`` uses at head width
-    ``d`` on the card, as ``cudaFuncGetAttributes`` and the occupancy
-    calculator report it (spill bytes are its local memory a thread)."""
-    from transformertts_torch.ops import build
-    fn = getattr(build.load('flash_attention_bwd'), name)
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(keys))()
-    err = fn(d, out)
-    if err != 0:
-        raise RuntimeError(f'{name}({d}) failed: error {err}')
-    return dict(zip(keys, out))
-
-
 def dq_resources(d: int) -> dict:
-    """K3's bfloat16 kernel at head width ``d``, keyed by ``DQ_RESOURCES``."""
-    return _resources('flash_attention_bwd_dq_resources', DQ_RESOURCES, d)
+    """What K3's bfloat16 kernel at head width ``d`` uses on the card:
+    ``build.RESOURCES`` and its key tile."""
+    from transformertts_torch.ops import build
+    return build.resources('flash_attention_bwd', 'flash_attention_bwd_dq_resources', (d,),
+                           build.RESOURCES + ('key_tile',))
 
 
 def dkv_resources(d: int) -> dict:
-    """K4's bfloat16 kernel at head width ``d``, keyed by ``DKV_RESOURCES``."""
-    return _resources('flash_attention_bwd_dkv_resources', DKV_RESOURCES, d)
+    """What K4's bfloat16 kernel at head width ``d`` uses on the card:
+    ``build.RESOURCES`` and its query tile."""
+    from transformertts_torch.ops import build
+    return build.resources('flash_attention_bwd', 'flash_attention_bwd_dkv_resources', (d,),
+                           build.RESOURCES + ('query_tile',))
 
 
 class _FlashAttention(torch.autograd.Function):

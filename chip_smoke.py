@@ -12,16 +12,19 @@ prints no result):
    parallel;
 3. kernel vs plain: the forward kernel (K1) against ``attention_plain`` on
    the card, in float32 and in bfloat16 (padded keys, a fully masked row,
-   causal on and off, head widths 24 and 192, the synthesis shapes), then
-   both timed in bfloat16 at the synthesis shapes;
+   causal on and off, head widths 24 and 192, the synthesis shapes), and in
+   bfloat16 at the edges of its wgmma design (``EDGE_CASES``), what it uses
+   on the card for each head-width template, then both timed in bfloat16 at
+   the synthesis shapes;
 4. training kernels vs plain: K2 (output and logsumexp), K3 (dQ) and K4
    (dK, dV) against ``attention_fwd_lse_plain``/``attention_bwd_plain`` in
    float32 and bfloat16, at dropout 0 and 0.1 with one (seed, offset), on
-   the same kinds of cases and the training shapes (bfloat16 dQ, dK and dV
-   also within a relative L2 error of 1e-2 of the plain version in float32),
-   what K3 and K4 use on the card (registers, spill bytes, shared memory and
-   blocks an SM, for each head-width template), then forward+backward timed
-   against the plain versions at the training shapes;
+   the same kinds of cases, ``EDGE_CASES`` in bfloat16 and the training
+   shapes (bfloat16 dQ, dK and dV also within a relative L2 error of 1e-2
+   of the plain version in float32), what K2, K3 and K4 use on the card
+   (registers, spill bytes, shared memory and blocks an SM, for each
+   head-width template), then forward+backward timed against the plain
+   versions at the training shapes;
 5. serving slice: the published LJSpeech configuration (d=384, 6+6 blocks,
    2 heads, bfloat16) with weights drawn from a seed, saved as a model dir
    and loaded back; ``synthesize_lines`` over config/test_sentences.txt with
@@ -87,6 +90,16 @@ ENCODER_SHAPE = (64, 2, 128, 128, 192)  # (B, H, Tq, Tk, D) of the slice
 DECODER_SHAPE = (64, 2, 768, 768, 192)
 TRAIN_ENCODER_SHAPE = (32, 2, 128, 128, 192)  # B32 x 128 tokens x 512 frames
 TRAIN_DECODER_SHAPE = (32, 2, 512, 512, 192)
+# the bf16 forward's design edges, (B, H, Tq, Tk, D) and causal, which the
+# forward's and K2-K4's `cuda` tests take too: head widths 64, 128 and 256,
+# and 24 (TMA zero-fills it to 64); Tq one row past a 128-row block; Tk 1;
+# more key tiles than the ring has stages, causal with Tq != Tk; more blocks
+# than one wave of the card
+EDGE_CASES = [((2, 2, 150, 170, 64), False), ((2, 3, 200, 190, 128), True),
+              ((2, 2, 140, 200, 256), False), ((3, 2, 129, 77, 24), False),
+              ((2, 2, 129, 129, 192), True), ((2, 2, 70, 1, 192), False),
+              ((2, 2, 300, 700, 192), True), ((1, 2, 100, 600, 256), True),
+              ((2, 1, 64, 900, 64), True), ((12, 12, 160, 96, 64), False)]
 BF16_GRAD_TOL = dict(atol=0.12, rtol=0.12)  # the JAX flash backward's bfloat16 bar
 F32_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)   # ... and its float32 bar
 WIRING_REL_L2_BAR = 1e-3
@@ -250,17 +263,36 @@ def _sdpa_backend(q, k, v, mask, dropout_p: float) -> str:
     return SDPBackend(choice).name
 
 
+def _resources(label: str, query, tile: str) -> dict:
+    """Log what a bf16 kernel uses on the card at each head-width template
+    (``query(d)``, one of ops.flash_attention's ``*_resources``); raise if
+    the training and serving width, D 192, spills or fits no block."""
+    by_d = {d: query(d) for d in (64, 128, 192, 256)}
+    for d, r in by_d.items():
+        log(f'{label} bf16 at D {d}: {r["registers"]} registers a thread, '
+            f'{r["spill_bytes"]} spill (local) bytes, {r["static_smem_bytes"]} + '
+            f'{r["dynamic_smem_bytes"]} B of shared memory a block, {r["blocks_per_sm"]} '
+            f'block(s) of {r["threads"]} threads an SM, {tile.replace("_", " ")} {r[tile]}')
+    # the designs keep their accumulators in registers at the published head
+    # width, with a block of 8 warps on an SM
+    if by_d[192]['spill_bytes'] != 0 or by_d[192]['blocks_per_sm'] < 1:
+        raise AssertionError(f'{label} at D 192 spills or does not fit: {by_d[192]}')
+    return by_d[192]
+
+
 def kernel_phase() -> dict:
     """Kernel vs plain in both dtypes (each has its own kernel: SIMT for
-    float32, tensor cores for bfloat16), then both timed at the slice shapes."""
-    from transformertts_torch.ops.flash_attention import attention_plain, flash_attention
+    float32, wgmma for bfloat16, which also takes ``EDGE_CASES``), what the
+    bf16 kernel uses on the card, then both timed at the slice shapes."""
+    from transformertts_torch.ops.flash_attention import (attention_plain, flash_attention,
+                                                          fwd_resources)
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     cases = [((2, 2, 37, 53, 24), False), ((2, 2, 41, 41, 24), True),
              ((3, 2, 130, 70, 192), False), ((2, 2, 100, 100, 192), True),
              (ENCODER_SHAPE, False), (DECODER_SHAPE, False)]
     errors = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for shape, causal in cases:
+        for shape, causal in cases + (EDGE_CASES if dtype == torch.bfloat16 else []):
             q, k, v, bias = _qkv(shape, dtype, gen)
             out = flash_attention(q, k, v, bias, causal)
             torch.cuda.synchronize()
@@ -269,8 +301,9 @@ def kernel_phase() -> dict:
                 raise AssertionError(f'kernel output not finite at {shape} {dtype}')
             torch.testing.assert_close(out.float(), ref.float(), **tol)
             err = (out.float() - ref.float()).abs().max().item()
-            errors[shape, dtype] = err
+            errors[shape, dtype] = max(err, errors.get((shape, dtype), 0.0))
             log(f'{dtype} {shape} causal={causal}: max |kernel - plain| {err:.3g}')
+    resources = _resources('K1', lambda d: fwd_resources(d, False), 'stages')
     record = {}
     for name, shape in (('encoder', ENCODER_SHAPE), ('decoder', DECODER_SHAPE)):
         q, k, v, bias = _qkv(shape, torch.bfloat16, gen)
@@ -287,10 +320,10 @@ def kernel_phase() -> dict:
         log(f'bf16 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
             f'scaled_dot_product_attention ({backend}) {library_ms:.4f} ms, bound '
             f'{limit["bound_ms"]:.4f} ms ({limit["bound_by"]})')
-        record[name] = dict(shape=list(shape), max_abs_err=errors[shape, torch.bfloat16],
-                            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            library_backend=backend, **limit)
-    return record
+        record[name] = dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, library_backend=backend, **limit)
+    worst = max(e for (_, dtype), e in errors.items() if dtype == torch.bfloat16)
+    return {'times': record, 'max_abs_err': worst, 'resources': resources}
 
 
 def _trainable_ops():
@@ -304,10 +337,10 @@ def _rel_l2(mine, want) -> float:
 
 
 def trainable_kernel_phase() -> dict:
-    """K2, K3 and K4 against the plain versions in both dtypes, at dropout 0
-    and 0.1 with one (seed, offset), what K3 and K4 use on the card, then
-    forward+backward timed in bfloat16 against the plain versions at the
-    training shapes."""
+    """K2, K3 and K4 against the plain versions in both dtypes (and
+    ``EDGE_CASES`` in bfloat16), at dropout 0 and 0.1 with one (seed,
+    offset), what K2, K3 and K4 use on the card, then forward+backward timed
+    in bfloat16 against the plain versions at the training shapes."""
     fa, _ = _trainable_ops()
     gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
     cases = [((2, 2, 37, 53, 24), False), ((2, 2, 41, 41, 24), True),
@@ -318,7 +351,10 @@ def trainable_kernel_phase() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         grad_tol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
-        for shape, causal in cases:
+        for shape, causal in cases + (EDGE_CASES if dtype == torch.bfloat16 else []):
+            # a softmax over one key has no gradient to its logit: dQ and dK
+            # are 0 at Tk 1, and only their absolute bar applies
+            zero = ('dq', 'dk') if shape[3] == 1 else ()
             for rate in (0.0, 0.1):
                 q, k, v, bias = _qkv(shape, dtype, gen)
                 dout = torch.randn(q.shape, device='cuda', generator=gen).to(dtype)
@@ -329,14 +365,15 @@ def trainable_kernel_phase() -> dict:
                 torch.cuda.synchronize()
                 ref_out, ref_lse = fa.attention_fwd_lse_plain(q, k, v, bias, *args)
                 ref = fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, *args)
-                checks = (('K2', out, ref_out, fwd_tol), ('K2', lse, ref_lse, F32_TOL),
-                          ('K3', dq, ref[0], grad_tol), ('K4', dk, ref[1], grad_tol),
-                          ('K4', dv, ref[2], grad_tol))
-                for name, mine, want, tol in checks:
+                checks = (('K2', 'out', out, ref_out, fwd_tol),
+                          ('K2', 'lse', lse, ref_lse, F32_TOL),
+                          ('K3', 'dq', dq, ref[0], grad_tol), ('K4', 'dk', dk, ref[1], grad_tol),
+                          ('K4', 'dv', dv, ref[2], grad_tol))
+                for name, what, mine, want, tol in checks:
                     if not torch.isfinite(mine).all():
                         raise AssertionError(f'{name} not finite at {shape} {dtype} {rate}')
-                    if not want.abs().max() > 0:
-                        raise AssertionError(f'{name}: the plain version is all zero')
+                    if what not in zero and not want.abs().max() > 0:
+                        raise AssertionError(f'{name}: the plain {what} is all zero')
                     torch.testing.assert_close(mine.float(), want.float(), **tol)
                     errors[name] = max(errors[name],
                                        (mine.float() - want.float()).abs().max().item())
@@ -346,7 +383,8 @@ def trainable_kernel_phase() -> dict:
                     ref32 = fa.attention_bwd_plain(q.float(), k.float(), v.float(), bias,
                                                    out.float(), lse, dout.float(), *args)
                     rels = {n: _rel_l2(g, r) for n, g, r in zip(('dq', 'dk', 'dv'),
-                                                                 (dq, dk, dv), ref32)}
+                                                                 (dq, dk, dv), ref32)
+                            if n not in zero}
                     if not max(rels.values()) < GRAD_REL_L2_BAR:
                         raise AssertionError(f'K3/K4 relative L2 error {rels} at {shape} '
                                              f'dropout {rate}, bar {GRAD_REL_L2_BAR}')
@@ -362,20 +400,9 @@ def trainable_kernel_phase() -> dict:
                     f'dv {(dv.float() - ref[2].float()).abs().max().item():.3g} '
                     f'(max |plain dq| {ref[0].float().abs().max().item():.3g}){rel}')
                 del q, k, v, dout, out, lse, dq, dk, dv, ref_out, ref_lse, ref
-    resources = {}
-    for label, query, tile in (('K3', fa.dq_resources, 'key_tile'),
-                               ('K4', fa.dkv_resources, 'query_tile')):
-        by_d = {d: query(d) for d in (64, 128, 192, 256)}
-        for d, r in by_d.items():
-            log(f'{label} bf16 at D {d}: {r["registers"]} registers a thread, '
-                f'{r["spill_bytes"]} spill (local) bytes, {r["static_smem_bytes"]} + '
-                f'{r["dynamic_smem_bytes"]} B of shared memory a block, {r["blocks_per_sm"]} '
-                f'block(s) of {r["threads"]} threads an SM, {tile.replace("_", " ")} {r[tile]}')
-        # the designs keep their accumulators in registers at the training
-        # head width, with a block of 8 warps on an SM
-        if by_d[192]['spill_bytes'] != 0 or by_d[192]['blocks_per_sm'] < 1:
-            raise AssertionError(f'{label} at D 192 spills or does not fit: {by_d[192]}')
-        resources[label] = by_d[192]
+    resources = {label: _resources(label, query, tile) for label, query, tile in (
+        ('K2', lambda d: fa.fwd_resources(d, True), 'stages'),
+        ('K3', fa.dq_resources, 'key_tile'), ('K4', fa.dkv_resources, 'query_tile'))}
     record = {}
     for name, shape in (('encoder', TRAIN_ENCODER_SHAPE), ('decoder', TRAIN_DECODER_SHAPE)):
         q, k, v, bias = _qkv(shape, torch.bfloat16, gen)
@@ -875,25 +902,27 @@ def featurization_phase() -> dict:
 def main():
     card = device_phase()
     build_phase()
-    times = kernel_phase()
+    serving = kernel_phase()
     trainable = trainable_kernel_phase()
     result = slice_phase()
     train = training_phase()
     log_mel = log_mel_kernel_phase()
     featurize = featurization_phase()
+    times = serving['times']
     dec = times['decoder']
     kernels = [{
         'name': 'flash_attention_fwd', 'route': 'cuda',
         'source': 'transformertts_torch/csrc/flash_attention_fwd.cu',
         'replaces': 'transformertts_tpu/ops/flash_attention.py:48',
         'launches': result['launches'],
-        'max_abs_err': max(t['max_abs_err'] for t in times.values()),
+        'max_abs_err': serving['max_abs_err'],
         'ms': dec['ms'], 'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
         'bound_by': dec['bound_by'], 'library_ms': dec['library_ms'],
         'library': f'scaled_dot_product_attention ({dec["library_backend"]})',
         'shape': dec['shape'],
         'encoder_ms': times['encoder']['ms'],
         'encoder_plain_ms': times['encoder']['plain_ms'],
+        **serving['resources'],
     }]
     t_dec, t_enc = trainable['times']['decoder'], trainable['times']['encoder']
     for i, (name, label, source, line, plain, library) in enumerate((
@@ -916,6 +945,7 @@ def main():
             'encoder_ms': t_enc[label], 'encoder_plain_ms': t_enc[plain],
         })
     rel_l2 = trainable['rel_l2']
+    kernels[1].update(trainable['resources']['K2'])
     kernels[-2].update(rel_l2_dq=rel_l2['dq'], **trainable['resources']['K3'])
     kernels[-1].update(rel_l2_dk=rel_l2['dk'], rel_l2_dv=rel_l2['dv'],
                        **trainable['resources']['K4'])

@@ -15,12 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import EDGE_CASES
 from transformertts_torch.ops.flash_attention import (NEG_INF, attention_plain,
-                                                      flash_attention)
+                                                      flash_attention, fwd_resources)
 
 torch.set_num_threads(1)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
+BF16_TOL = dict(atol=3e-2, rtol=3e-2)   # the JAX kernel's own bfloat16 bar
 
 # (b, h, tq, tk, d, causal, padded keys)
 CASES = {
@@ -31,6 +33,11 @@ CASES = {
     'odd-head-width': (2, 2, 19, 23, 13, False, True),
     'published-head-width': (2, 2, 33, 33, 192, False, True),
 }
+
+# the bfloat16 design's edges that chip_smoke.py also runs, (b, h, tq, tk, d)
+# and causal, named like '2x2x129x129x192-causal'
+EDGE_IDS = ['x'.join(map(str, shape)) + ('-causal' if causal else '')
+            for shape, causal in EDGE_CASES]
 
 
 def _inputs(b, h, tq, tk, d, padded, seed=0):
@@ -117,6 +124,39 @@ def test_kernel_matches_plain_on_card(cuda, case):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     torch.testing.assert_close(out, attention_plain(q, k, v, bias, causal=causal), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,causal', EDGE_CASES, ids=EDGE_IDS)
+def test_kernel_bfloat16_at_the_design_edges(cuda, shape, causal):
+    """The wgmma kernel in bfloat16 where its tiles, ring and padding are
+    ragged, with the first sample's last keys and the last sample's every
+    key masked."""
+    b, h, tq, tk, d = shape
+    q, k, v, bias = _torch(*_inputs(b, h, tq, tk, d, padded=True, seed=4), device=cuda)
+    bias[-1] = NEG_INF
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v, bias, causal).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('train', [False, True])
+@pytest.mark.parametrize('d', [64, 128, 192, 256])
+def test_kernel_keeps_its_accumulators_in_registers(cuda, d, train):
+    """The bfloat16 design, K1's instance and K2's: a block of two
+    warpgroups fits an SM, with Q and a ring of at least two K/V stages in
+    shared memory, and O stays in registers (no local memory)."""
+    res = fwd_resources(d, train)
+    assert res['threads'] == 256 and res['blocks_per_sm'] >= 1
+    assert res['spill_bytes'] == 0 and res['registers'] <= 255
+    assert res['stages'] == (4 if d <= 128 else 3 if d <= 192 else 2)
+    assert res['dynamic_smem_bytes'] <= 232448
 
 
 @pytest.mark.cuda

@@ -30,16 +30,34 @@
 // - The TPU kernel keeps one (batch, head)'s whole K/V resident in VMEM. On
 //   an H100 a block has 227 KB of shared memory; at Tk = 768, D = 192 in
 //   bf16, K and V alone take 590 KB. So keys stream through shared memory
-//   in tiles with an online softmax (running max, running sum, float32
-//   accumulator in registers), and queries are tiled too:
-//   grid = (B*H, ceil(Tq / 64)). Each Q/K/V element is read from device
-//   memory once per query tile, so at the synthesis shapes the kernel is
-//   bound by arithmetic, not by the 3.35 TB/s of HBM.
-// - bfloat16 (the synthesis path) runs both products on the tensor cores
-//   with mma.sync m16n8k16 (float32 accumulate): each of 4 warps owns 16
-//   query rows, the scores never leave registers, and the probabilities are
-//   fed back as the A operand of P.V in bfloat16. wgmma and TMA are the
-//   next step.
+//   in 64-key tiles with an online softmax (running max, running sum,
+//   float32 accumulator in registers). At the synthesis shape (B64 H2
+//   768 x 768 x 192) the function is 58 GFLOP against 151 MB of q, k, v and
+//   out: 0.059 ms at 989 TFLOP/s, 0.045 ms at 3.35 TB/s, so the tensor
+//   cores bound it, and each K/V tile is read once per 128-query block.
+// - bfloat16 (serving and training) runs both products with wgmma, the only
+//   way to Hopper's full tensor-core rate. A block is two warpgroups (256
+//   threads), 64 query rows each (wgmma's M), 128 rows a block; the grid is
+//   B*H x ceil(Tq / 128) blocks, the query blocks of one (batch, head) next
+//   to each other so that they share its K/V in L2. D is padded to DP, a
+//   multiple of 64 (the template DMAX); TMA fills columns >= D and rows past
+//   Tq or Tk with zeros. Three tensor maps view q, k, v as (D, T, B*H), so a
+//   tile's tail rows never read the next head's rows, in 64-column boxes
+//   under the 128-byte swizzle (one swizzle atom a row). Q's 128 x DP tile
+//   is loaded once and stays in shared memory as wgmma's A operand. K and V
+//   come in 64-key tiles through a ring of STAGES stages: thread 0 issues
+//   the TMA copies of tile i + STAGES - 1 before tile i is computed, each
+//   stage has a "full" mbarrier armed with the stage's bytes and an "empty"
+//   one that each of the 8 warps arrives at once its P.V has retired.
+//   S = Q K^T is m64n64k16 with both operands K-major in shared memory;
+//   the softmax runs on the accumulator registers (a thread holds two rows,
+//   a quad shuffle gives their max); P, packed to bf16 pairs, is the
+//   register A operand of O += P V (the m64nNk16 accumulator and A layouts
+//   coincide), and B is V straight from the ring with the transpose bit, one
+//   m64n64k16 a 64-column box, so V is never copied or transposed. O stays
+//   in registers (DP / 2 floats a thread).
+//   The logits stay in natural units, so the -1e9 mask constants and m are
+//   exactly what K3/K4 recompute; the exponent is (x - m) * log2(e) in exp2f.
 // - float32 has no tensor-core path at float32 precision (TF32 keeps 10
 //   mantissa bits), so it runs a SIMT kernel on the CUDA cores: 256 threads,
 //   a 4x2 score tile and a 4x(D/16) output tile per thread, 32-key tiles.
@@ -47,8 +65,10 @@
 //   width. Register tiles are sized by a compile-time bound (64/128/192/256)
 //   and guarded at run time, so D need not be a power of two.
 
+#include <cuda.h>           // CUtensorMap and its enums; nothing of libcuda is linked
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -57,92 +77,233 @@
 namespace {
 
 constexpr float NEG_INF = -1e9f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16)
+// bfloat16: wgmma on tiles that TMA brings into a ring of stages
 // ---------------------------------------------------------------------------
 
-constexpr int MQ = 64;            // queries per block: 4 warps x 16 rows
-constexpr int MK = 64;            // keys per tile
-constexpr int MMA_THREADS = 128;
-constexpr int VT_STRIDE = MK + 8; // row stride of V^T in smem (bf16); the pad
-                                  // makes fragment loads bank-conflict free
+constexpr int WG_ROWS = 64;        // query rows of a warpgroup: wgmma's M
+constexpr int Q_ROWS = 128;        // query rows of a block: two warpgroups
+constexpr int KEYS = 64;           // keys of a tile
+constexpr int WG_THREADS = 256;
+constexpr int BOX = 64;            // bf16 columns of a TMA box: a 128-byte row
+constexpr uint32_t Q_BOX_BYTES = Q_ROWS * 128;
+constexpr uint32_t KV_BOX_BYTES = KEYS * 128;
+constexpr uint32_t ATOM_BYTES = 1024;   // 8 rows of 128 B: the swizzle pattern
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
+// ring depth by head-width template: as many stages as fit beside Q
+__host__ __device__ constexpr int fwd_stages(int dmax) {
+    return dmax <= 128 ? 4 : dmax <= 192 ? 3 : 2;
 }
+
+// Q, the ring, a full and an empty barrier a stage and Q's, and one atom to
+// align the tiles to the swizzle pattern: 197,688 B at D 192
+__host__ __device__ constexpr size_t wgmma_smem_bytes(int dmax) {
+    return ATOM_BYTES + (size_t)(dmax / BOX) * Q_BOX_BYTES
+        + (size_t)fwd_stages(dmax) * 2 * (dmax / BOX) * KV_BOX_BYTES
+        + 8 * (1 + 2 * fwd_stages(dmax));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed. A wait of
+// more than ~2^32 cycles (seconds) traps, so a fault in the ring ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    long long start = 0;
+    while (true) {
+        uint32_t done;
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        if (done) return;
+        long long now = clock64();
+        if (start == 0) start = now;
+        else if (now - start > (1LL << 32)) __trap();
+    }
+}
+
+// TMA: the box at (c0, c1, c2) of `map` into shared memory at dst, counted
+// on the barrier bar in bytes
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
+                                         int c1, int c2, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4}], [%5];"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+           "r"(bar)
+        : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for a tile under the 128-byte
+// swizzle: start address, leading and stride byte offsets (16-byte units)
+// and the swizzle mode (1: 128 B) in bits 62-63. The tiles sit on 1024-byte
+// boundaries, so the base offset is 0.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+        | (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+// K-major (rows of 64 k values, 128 B): 8-row groups 1024 B apart; a k16
+// step inside the atom advances the start address by 32 B
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+    return sw128_desc(addr, 16, ATOM_BYTES);
+}
+
+// MN-major (V: key rows of 64 columns): 8-key groups 1024 B apart, 64-column
+// boxes KV_BOX_BYTES apart
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+    return sw128_desc(addr, KV_BOX_BYTES, ATOM_BYTES);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define WGMMA_ACC32(d)                                                                 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+    "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+    "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+    "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+    "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+    "+f"(d[31])
+#define WGMMA_D32                                                                     \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+    "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64, f32) = [d +] A (64 x 16) B (16 x 64), A and B K-major in shared
+// memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}"
+        : WGMMA_ACC32(d) : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A (64 x 16, bf16 pairs in registers) B (16 x 64), B MN-major in shared
+// memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+        : WGMMA_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WGMMA_ACC32
+#undef WGMMA_D32
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// Thread 0: key tile i's K and V into its stage, once the stage's previous
+// tile has been released by every warp.
+template <int DMAX, int STAGES>
+__device__ __forceinline__ void load_kv_tile(int i, int bh, uint32_t ring, uint32_t full_bar,
+                                             uint32_t empty_bar, const CUtensorMap* kmap,
+                                             const CUtensorMap* vmap) {
+    constexpr uint32_t KV_BYTES = (DMAX / BOX) * KV_BOX_BYTES;
+    const int s = i % STAGES;
+    if (i >= STAGES) mbar_wait(empty_bar + 8 * s, (i / STAGES - 1) & 1);
+    mbar_expect_tx(full_bar + 8 * s, 2 * KV_BYTES);
+    const uint32_t dst = ring + s * 2 * KV_BYTES;
+#pragma unroll
+    for (int j = 0; j < DMAX / BOX; ++j) {
+        tma_load(dst + j * KV_BOX_BYTES, kmap, j * BOX, i * KEYS, bh, full_bar + 8 * s);
+        tma_load(dst + KV_BYTES + j * KV_BOX_BYTES, vmap, j * BOX, i * KEYS, bh,
+                 full_bar + 8 * s);
+    }
 }
 
-size_t mma_smem_bytes(int d) {
-    int dp = (d + 15) / 16 * 16;
-    return ((size_t)MQ * (dp + 8) + (size_t)MK * (dp + 8) + (size_t)dp * VT_STRIDE)
-        * sizeof(__nv_bfloat16) + MK * sizeof(float);
-}
-
-// Fragment layouts of m16n8k16 (PTX ISA), lane = 4 g + t:
-//   A regs: (row g, k 2t..2t+1), (row g+8, k 2t..), (row g, k 2t+8..), (row g+8, k 2t+8..)
-//   B regs: (k 2t..2t+1, col g), (k 2t+8..2t+9, col g)
-//   C:      (row g, col 2t..2t+1), (row g+8, col 2t..2t+1)
+// Layouts (PTX ISA, wgmma .m64nNk16), warp w of a warpgroup, lane = 4 g + t:
+//   accumulator d[4n + e]: row 16 w + g + 8 (e >> 1), column 8 n + 2 t + (e & 1)
+//   register A a[r] (bf16 pair): row 16 w + g + 8 (r & 1), k 2 t + 8 (r >> 1) + {0, 1}
+// so the A fragment of k16 step kk of P.V is the accumulator pairs
+// d[8 kk + 2 r], d[8 kk + 2 r + 1]: a[i] = pack(d[2 i], d[2 i + 1]).
 template <int DMAX, bool TRAIN>
-__global__ void __launch_bounds__(MMA_THREADS)
-attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                    float* __restrict__ lse, int H, int Tq, int Tk, int D,
-                    int causal, float scale, uint32_t key, uint32_t thr,
-                    float keep_scale) {
-    constexpr int NT = DMAX / 8;           // output n-tiles per warp
-    const int DP = (D + 15) / 16 * 16;     // head width padded to the mma depth
-    const int QS = DP + 8;                 // row stride of the Q and K tiles
-    const int C8 = DP / 8;                 // 16-byte chunks per padded row
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MQ][QS]
-    __nv_bfloat16* ks = qs + MQ * QS;                                  // [MK][QS]
-    __nv_bfloat16* vt = ks + MK * QS;                                  // [DP][VT_STRIDE]
-    float* bs = reinterpret_cast<float*>(vt + DP * VT_STRIDE);         // [MK]
+__global__ void __launch_bounds__(WG_THREADS, 1)
+attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int H, int Tq, int Tk, int D, int n_qblocks,
+                      int causal, float scale, uint32_t key, uint32_t thr,
+                      float keep_scale) {
+    constexpr int NB = DMAX / BOX;              // 64-column boxes of a row
+    constexpr int STAGES = fwd_stages(DMAX);
+    constexpr uint32_t KV_BYTES = NB * KV_BOX_BYTES;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t q_smem = (smem_u32(smem_raw) + ATOM_BYTES - 1) & ~(ATOM_BYTES - 1);
+    const uint32_t ring = q_smem + NB * Q_BOX_BYTES;          // stage s: K, then V
+    const uint32_t q_bar = ring + STAGES * 2 * KV_BYTES;
+    const uint32_t full_bar = q_bar + 8, empty_bar = full_bar + 8 * STAGES;
 
     const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
-    const int bh = blockIdx.x;
-    const int b = bh / H;
-    const int q0 = blockIdx.y * MQ;
+    const int bh = blockIdx.x / n_qblocks, b = bh / H;
+    const int q0 = (blockIdx.x % n_qblocks) * Q_ROWS;
+    const int n_tiles = (Tk + KEYS - 1) / KEYS;
 
-    const __nv_bfloat16* qb = q + (long long)bh * Tq * D;
-    const __nv_bfloat16* kb = k + (long long)bh * Tk * D;
-    const __nv_bfloat16* vb = v + (long long)bh * Tk * D;
-    const float* biasb = bias + (long long)b * Tk;
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-
-    for (int idx = tid; idx < MQ * C8; idx += MMA_THREADS) {
-        int r = idx / C8, d = (idx % C8) * 8;
-        uint4 x = (q0 + r < Tq && d < D)
-            ? *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * D + d) : zero;
-        *reinterpret_cast<uint4*>(qs + r * QS + d) = x;
+    if (tid == 0) {
+        mbar_init(q_bar, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full_bar + 8 * s, 1);
+            mbar_init(empty_bar + 8 * s, WG_THREADS / 32);   // one arrival a warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+        mbar_expect_tx(q_bar, NB * Q_BOX_BYTES);
+        for (int j = 0; j < NB; ++j)
+            tma_load(q_smem + j * Q_BOX_BYTES, &qmap, j * BOX, q0, bh, q_bar);
+        for (int i = 0; i < STAGES - 1 && i < n_tiles; ++i)
+            load_kv_tile<DMAX, STAGES>(i, bh, ring, full_bar, empty_bar, &kmap, &vmap);
     }
 
-    float o[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0 + 8
-    const __nv_bfloat16* qw = qs + (warp * 16 + g) * QS + 2 * t;
+    const int row0 = q0 + wg * WG_ROWS + warp * 16 + g;   // rows row0, row0 + 8
+    const float* biasb = bias + (long long)b * Tk;
     const bool drop = TRAIN && thr != 0u;
     uint32_t hr[2] = {0u, 0u};
     if (drop) {
@@ -150,102 +311,106 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         hr[0] = dropout_row_hash(hb, row0);
         hr[1] = dropout_row_hash(hb, row0 + 8);
     }
+    float o[NB][32];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    const uint32_t q_wg = q_smem + wg * WG_ROWS * 128;   // this warpgroup's A rows
+    mbar_wait(q_bar, 0);
 
-    for (int k0 = 0; k0 < Tk; k0 += MK) {
-        __syncthreads();   // the previous tile's K/V reads are done
-        for (int idx = tid; idx < MK * C8; idx += MMA_THREADS) {
-            int kk = idx / C8, d = (idx % C8) * 8;   // d fastest: coalesced rows
-            uint4 x = (k0 + kk < Tk && d < D)
-                ? *reinterpret_cast<const uint4*>(kb + (long long)(k0 + kk) * D + d) : zero;
-            *reinterpret_cast<uint4*>(ks + kk * QS + d) = x;
-        }
-        for (int idx = tid; idx < MK * C8; idx += MMA_THREADS) {
-            // keys fastest, so the transposed 2-byte stores of a warp land on
-            // consecutive addresses of one V^T row (no bank conflicts)
-            int kk = idx % MK, d = (idx / MK) * 8;
-            uint4 x = (k0 + kk < Tk && d < D)
-                ? *reinterpret_cast<const uint4*>(vb + (long long)(k0 + kk) * D + d) : zero;
-            const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
+    for (int i = 0; i < n_tiles; ++i) {
+        if (tid == 0 && i + STAGES - 1 < n_tiles)
+            load_kv_tile<DMAX, STAGES>(i + STAGES - 1, bh, ring, full_bar, empty_bar, &kmap,
+                                       &vmap);
+        const int stage = i % STAGES, k0 = i * KEYS;
+        // the bias of this thread's 16 keys, read while the tile lands
+        float bk[16];
 #pragma unroll
-            for (int i = 0; i < 8; ++i) vt[(d + i) * VT_STRIDE + kk] = e[i];
-        }
-        if (tid < MK) bs[tid] = (k0 + tid < Tk) ? biasb[k0 + tid] : 0.f;
-        __syncthreads();
-
-        // S = Q K^T for this warp's 16 rows x 64 keys
-        float s[MK / 8][4];
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int n = 0; n < MK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        for (int kd = 0; kd < DP; kd += 16) {
-            uint32_t a0 = ld32(qw + kd), a1 = ld32(qw + 8 * QS + kd);
-            uint32_t a2 = ld32(qw + kd + 8), a3 = ld32(qw + 8 * QS + kd + 8);
-#pragma unroll
-            for (int n = 0; n < MK / 8; ++n) {
-                const __nv_bfloat16* kp = ks + (n * 8 + g) * QS + kd + 2 * t;
-                mma_bf16(s[n], a0, a1, a2, a3, ld32(kp), ld32(kp + 8));
+            for (int e = 0; e < 2; ++e) {
+                int col = k0 + 8 * n + 2 * t + e;
+                bk[2 * n + e] = col < Tk ? __ldg(biasb + col) : 0.f;
             }
-        }
+        mbar_wait(full_bar + 8 * stage, (i / STAGES) & 1);
+        const uint32_t k_smem = ring + stage * 2 * KV_BYTES, v_smem = k_smem + KV_BYTES;
 
-        // scale, mask, online softmax; row half h: rows row0 (h=0), row0+8 (h=1)
+        // S = Q K^T over DP / 16 k16 steps
+        wgmma_fence();
+#pragma unroll
+        for (int kd = 0; kd < DMAX / 16; ++kd)
+            wgmma_ss(s, kmajor_desc(q_wg + (kd / 4) * Q_BOX_BYTES + (kd % 4) * 32),
+                     kmajor_desc(k_smem + (kd / 4) * KV_BOX_BYTES + (kd % 4) * 32), kd > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(s);
+
+        // scale, mask, online softmax; row half h: rows row0 (h 0), row0 + 8 (h 1)
         float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int n = 0; n < MK / 8; ++n) {
+        for (int n = 0; n < 8; ++n) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                int key = n * 8 + 2 * t + (e & 1);
-                int col = k0 + key, row = row0 + (e >> 1) * 8;
-                float x = s[n][e] * scale + bs[key];
+                int col = k0 + 8 * n + 2 * t + (e & 1), row = row0 + (e >> 1) * 8;
+                float x = fmaf(s[4 * n + e], scale, bk[2 * n + (e & 1)]);
                 if (causal && col > row) x = NEG_INF;
                 if (col >= Tk) x = -INFINITY;
-                s[n][e] = x;
+                s[4 * n + e] = x;
                 tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
             }
         }
         float alpha[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            // the 4 lanes of a group (same g) hold one row between them
+            // the 4 lanes of a quad (same g) hold one row between them
             tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
             tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
-            float m_new = fmaxf(m[h], tmax[h]);  // finite: every tile holds a key < Tk
-            alpha[h] = expf(m[h] - m_new);
+            float m_new = fmaxf(m[h], tmax[h]);   // finite: every tile holds a key < Tk
+            alpha[h] = exp2f((m[h] - m_new) * LOG2E);
             m[h] = m_new;
             l[h] *= alpha[h];
         }
+        uint32_t pa[16];
 #pragma unroll
-        for (int n = 0; n < MK / 8; ++n) {
+        for (int n = 0; n < 8; ++n) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                float p = expf(s[n][e] - m[e >> 1]);
+                float p = exp2f((s[4 * n + e] - m[e >> 1]) * LOG2E);
                 l[e >> 1] += p;   // this lane's part of the row sum
                 if (drop)
-                    p = dropout_keep(hr[e >> 1], k0 + n * 8 + 2 * t + (e & 1), thr)
+                    p = dropout_keep(hr[e >> 1], k0 + 8 * n + 2 * t + (e & 1), thr)
                         ? p * keep_scale : 0.f;
-                s[n][e] = p;
+                s[4 * n + e] = p;
             }
         }
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-            o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-        }
+        for (int r = 0; r < 16; ++r) pa[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+                o[j][4 * n] *= alpha[0]; o[j][4 * n + 1] *= alpha[0];
+                o[j][4 * n + 2] *= alpha[1]; o[j][4 * n + 3] *= alpha[1];
+            }
 
-        // O += P V: the score accumulators of n-tiles 2kk, 2kk+1 are the A
-        // fragment of k-step kk; V^T in smem gives the B fragments
+        // O += P V: k16 step kk takes keys 16 kk.., 2048 B into each V box
+        wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < MK / 16; ++kk) {
-            uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-            uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-            uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        for (int kk = 0; kk < KEYS / 16; ++kk)
 #pragma unroll
-            for (int n = 0; n < NT; ++n) {
-                if (n * 8 < D) {
-                    const __nv_bfloat16* vp = vt + (n * 8 + g) * VT_STRIDE + kk * 16 + 2 * t;
-                    mma_bf16(o[n], a0, a1, a2, a3, ld32(vp), ld32(vp + 8));
-                }
-            }
-        }
+            for (int j = 0; j < NB; ++j)
+                wgmma_rs_mn(o[j], pa + 4 * kk,
+                            mnmajor_desc(v_smem + j * KV_BOX_BYTES + kk * 2 * ATOM_BYTES));
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int j = 0; j < NB; ++j) fence_acc(o[j]);
+        if (lane == 0) mbar_arrive(empty_bar + 8 * stage);   // this warp is done with it
     }
 
 #pragma unroll
@@ -263,12 +428,15 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 make_float2(m[h], logf(l[h]));
         float inv = 1.f / l[h];
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            int col = n * 8 + 2 * t;
-            if (col < D)
-                *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row * D + col) =
-                    __floats2bfloat162_rn(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
-        }
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+                int col = j * BOX + 8 * n + 2 * t;
+                if (col < D)
+                    *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row * D + col) =
+                        __floats2bfloat162_rn(o[j][4 * n + 2 * h] * inv,
+                                              o[j][4 * n + 2 * h + 1] * inv);
+            }
     }
 }
 
@@ -439,20 +607,44 @@ attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, int threads, size_t bytes, const void* q, const void* k,
-           const void* v, const float* bias, void* out, float* lse, int B, int H,
-           int Tq, int Tk, int D, int causal, float scale, uint32_t key,
-           uint32_t thr, float keep_scale, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(B * H, (Tq + 63) / 64);   // both kernels take 64 queries a block
-    kernel<<<grid, threads, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        bias, static_cast<T*>(out), lse, H, Tq, Tk, D, causal, scale, key, thr,
-        keep_scale);
-    return (int)cudaGetLastError();
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (cudaGetDriverEntryPoint), so the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = []() -> EncodeTiled {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &found);
+#endif
+        if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+        return reinterpret_cast<EncodeTiled>(p);
+    }();
+    return fn;
+}
+
+// A bf16 (B*H, T, D) tensor as a 3-D map (D, T, B*H) of boxes of 64 columns
+// by `rows` rows under the 128-byte swizzle, zeros outside the tensor.
+bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int T, int D, int rows) {
+    EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
+    const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+    const cuuint32_t box[3] = {BOX, (cuuint32_t)rows, 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                  strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 #define ATTN_ARGS q, k, v, bias, out, lse, B, H, Tq, Tk, D, causal, scale, key, thr, \
@@ -462,33 +654,76 @@ int launch(Kernel kernel, int threads, size_t bytes, const void* q, const void* 
                     int causal, float scale, uint32_t key, uint32_t thr, \
                     float keep_scale, cudaStream_t stream
 
+// the instance of KERNEL for head width D
+#define PICK_D(KERNEL, TRAIN)                                                  \
+    (D <= 64 ? KERNEL<64, TRAIN> : D <= 128 ? KERNEL<128, TRAIN>               \
+     : D <= 192 ? KERNEL<192, TRAIN> : KERNEL<256, TRAIN>)
+
 template <bool TRAIN>
 int launch_bf16(ATTN_PARAMS) {
-    using T = __nv_bfloat16;
-    size_t bytes = mma_smem_bytes(D);
-    if (D <= 64) return launch<T>(attn_fwd_mma_kernel<64, TRAIN>, MMA_THREADS, bytes, ATTN_ARGS);
-    if (D <= 128) return launch<T>(attn_fwd_mma_kernel<128, TRAIN>, MMA_THREADS, bytes, ATTN_ARGS);
-    if (D <= 192) return launch<T>(attn_fwd_mma_kernel<192, TRAIN>, MMA_THREADS, bytes, ATTN_ARGS);
-    return launch<T>(attn_fwd_mma_kernel<256, TRAIN>, MMA_THREADS, bytes, ATTN_ARGS);
+    const int n_qblocks = (Tq + Q_ROWS - 1) / Q_ROWS;
+    if ((long long)B * H * n_qblocks > INT_MAX) return -1;
+    CUtensorMap qmap, kmap, vmap;
+    if (!tensor_map(&qmap, q, B * H, Tq, D, Q_ROWS) || !tensor_map(&kmap, k, B * H, Tk, D, KEYS)
+        || !tensor_map(&vmap, v, B * H, Tk, D, KEYS))
+        return -2;
+    auto kernel = PICK_D(attn_fwd_wgmma_kernel, TRAIN);
+    const int dmax = D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256;
+    const size_t bytes = wgmma_smem_bytes(dmax);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B * H * n_qblocks, WG_THREADS, bytes, stream>>>(
+        qmap, kmap, vmap, bias, static_cast<__nv_bfloat16*>(out), lse, H, Tq, Tk, D,
+        n_qblocks, causal, scale, key, thr, keep_scale);
+    return (int)cudaGetLastError();
 }
 
 template <bool TRAIN>
 int launch_f32(ATTN_PARAMS) {
-    size_t bytes = simt_smem_bytes(D);
-    if (D <= 64) return launch<float>(attn_fwd_simt_kernel<64, TRAIN>, SIMT_THREADS, bytes, ATTN_ARGS);
-    if (D <= 128) return launch<float>(attn_fwd_simt_kernel<128, TRAIN>, SIMT_THREADS, bytes, ATTN_ARGS);
-    if (D <= 192) return launch<float>(attn_fwd_simt_kernel<192, TRAIN>, SIMT_THREADS, bytes, ATTN_ARGS);
-    return launch<float>(attn_fwd_simt_kernel<256, TRAIN>, SIMT_THREADS, bytes, ATTN_ARGS);
+    if ((Tq + BQ - 1) / BQ > 65535) return -1;
+    auto kernel = PICK_D(attn_fwd_simt_kernel, TRAIN);
+    const size_t bytes = simt_smem_bytes(D);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+    kernel<<<grid, SIMT_THREADS, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), bias, static_cast<float*>(out), lse, H, Tq, Tk, D,
+        causal, scale, key, thr, keep_scale);
+    return (int)cudaGetLastError();
 }
+
+bool bad_width(int D) { return D < 8 || D > 256 || D % 8 != 0; }
 
 template <bool TRAIN>
 int dispatch(int dtype, ATTN_PARAMS) {
-    if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 8 || D > 256 || D % 8 != 0)
-        return -1;
-    if ((Tq + 63) / 64 > 65535) return -1;
+    if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || bad_width(D)) return -1;
     if (dtype == 0) return launch_f32<TRAIN>(ATTN_ARGS);
     if (dtype == 1) return launch_bf16<TRAIN>(ATTN_ARGS);
     return -1;
+}
+
+// What the bf16 kernel uses, as the card reports it: out = {registers a
+// thread, local (spill) bytes a thread, static and dynamic shared memory a
+// block, blocks an SM, threads a block, stages of the K/V ring}.
+template <typename Kernel>
+int wgmma_resources(Kernel kernel, int dmax, int* out) {
+    const size_t bytes = wgmma_smem_bytes(dmax);
+    int blocks = 0;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WG_THREADS,
+                                                            bytes);
+    if (err != cudaSuccess) return (int)err;
+    const int values[7] = {attr.numRegs, (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
+                           (int)bytes, blocks, WG_THREADS, fwd_stages(dmax)};
+    for (int i = 0; i < 7; ++i) out[i] = values[i];
+    return 0;
 }
 
 #undef ATTN_ARGS
@@ -500,7 +735,8 @@ int dispatch(int dtype, ATTN_PARAMS) {
 // Tensors are contiguous and 16-byte aligned: q, out (B, H, Tq, D);
 // k, v (B, H, Tk, D); bias (B, Tk). Returns 0, or the cudaError_t of a
 // refused launch; -1 for arguments the kernel does not take (the Python
-// wrapper checks them first).
+// wrapper checks them first), -2 when the bf16 kernel's tensor maps cannot
+// be made (cuTensorMapEncodeTiled not found, or a map it refuses).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const float* bias, void* out, int B, int H,
                                    int Tq, int Tk, int D, int causal, int dtype,
@@ -523,4 +759,14 @@ extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void*
     return dispatch<true>(dtype, q, k, v, bias, out, lse, B, H, Tq, Tk, D, causal,
                           scale, key, thr, keep_scale,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 kernel's resources at head width D (see wgmma_resources), K1's
+// instance for train = 0, K2's for train = 1: 0, a cudaError_t, or -1 for a
+// width the kernel does not take.
+extern "C" int flash_attention_fwd_resources(int D, int train, int* out) {
+    if (bad_width(D)) return -1;
+    const int dmax = D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256;
+    return train ? wgmma_resources(PICK_D(attn_fwd_wgmma_kernel, true), dmax, out)
+                 : wgmma_resources(PICK_D(attn_fwd_wgmma_kernel, false), dmax, out);
 }

@@ -360,6 +360,15 @@ flash_attention_fwd_lse.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
+
+def fwd_resources(d: int, train: bool) -> dict:
+    """What the bfloat16 forward at head width ``d`` uses on the card, K1's
+    instance or (``train``) K2's: ``build.RESOURCES`` and its ring's stages."""
+    from transformertts_torch.ops import build
+    return build.resources('flash_attention_fwd', 'flash_attention_fwd_resources',
+                           (d, int(train)), build.RESOURCES + ('stages',))
+
+
 def dq_resources(d: int) -> dict:
     """What K3's bfloat16 kernel at head width ``d`` uses on the card:
     ``build.RESOURCES`` and its key tile."""

@@ -54,7 +54,28 @@ prints no result):
    the K5 launch count, the files it writes, one clip's mel against the
    plain version, the voiced share and the split, in clips/s and seconds of
    audio per second;
-9. the last three lines: the kernels' JSON record (each kernel's time, its
+9. Aligner kernel cases: K1 against ``attention_plain`` in float32 (its
+   SIMT kernel, the Aligner's compute dtype) and bfloat16 at the published
+   Aligner's shapes (``ALIGNER_CASES``: the decoder's causal self-attention
+   with padded keys, cross-attention with Tq >> Tk, the last block's causal
+   self-attention at D 256, decode steps of Tq 1 against a masked cache),
+   then K1 float32 timed at the decoder's self-attention shape beside its
+   plain version, ``scaled_dot_product_attention`` in float32 and its bound
+   (causal: only the products the mask leaves);
+10. Aligner slice: config/training_config.yaml's published ``aligner_settings``
+   (d 256, encoder heads [4, 4, 4, 4], decoder heads [4, 4, 4, 4, 1], float32)
+   with weights drawn from a seed, saved as a model dir and loaded back,
+   written as a JAX-layout checkpoint at a step where the reduction schedule
+   gives r = 1; ``transformertts_torch.extract_durations`` (its ``main``)
+   over the featurization slice's clips, which fails unless every clip's
+   durations sum to its mel frame count, its phoneme-wise pitch has their
+   length and K1 ran 13 times a batch; the kernel-path last-block maps of one
+   batch against the all-eager path's (``ALIGN_MAP_TOL``); the time split in
+   clips/s; one ``predict`` at max_length 400 in decode steps/s with its K1
+   launches a step; and the share of one bfloat16 batch's durations equal to
+   the float32 ones (printed, not gated: random weights give near-uniform
+   maps);
+11. the last three lines: the kernels' JSON record (each kernel's time, its
    plain version's, one PyTorch library call's that computes the same
    function, and its bound: the larger of the FLOPs the function needs
    (for K5 an FFT's) over the card's peak rate for their type and its
@@ -111,6 +132,19 @@ KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'fused_log_mel')
 PEAK_FLOPS = {'bf16': 989e12, 'f32': 67e12}
 HBM_BYTES_PER_S = 3.35e12
 N_CLIPS = 64  # synthetic clips the featurization slice featurizes
+# the published Aligner's attention shapes, (B, H, Tq, Tk, D), causal and, for
+# a decode step, the cache position whose successors the bias masks: B6 is
+# the config's validation batch, T up to its 1000-frame bucket, 150 tokens
+ALIGNER_SELF_SHAPE = (6, 4, 1000, 1000, 64)
+ALIGNER_CASES = [((6, 4, 777, 777, 64), True, None), (ALIGNER_SELF_SHAPE, True, None),
+                 ((6, 4, 1000, 150, 64), False, None), ((6, 1, 1000, 1000, 256), True, None),
+                 ((1, 4, 1, 1000, 64), False, 437), ((1, 1, 1, 1000, 256), False, 437)]
+# extraction's kernel-path last-block maps against the all-eager path's: both
+# float32, the kernels' summation order against cuBLAS's through 4 encoder and
+# 5 decoder blocks
+ALIGN_MAP_TOL = dict(atol=1e-4, rtol=0)
+ALIGNER_R1_STEP = 130000   # the published reduction schedule's r = 1 from here
+PREDICT_MAX_LENGTH = 400
 
 PUBLISHED = dict(
     encoder_model_dimension=384, decoder_model_dimension=384, dropout_rate=0.1,
@@ -896,7 +930,179 @@ def featurization_phase() -> dict:
         f's, of it {stats["featurize_batch_s"]:.2f} s in featurize_batch (padding, K5, '
         f'YIN, saving) and the rest waiting on the host workers')
     return {'launches': launches, 'clips_per_s': kept / wall,
-            'audio_s_per_s': seconds / wall}
+            'audio_s_per_s': seconds / wall, 'config': cfg}
+
+
+def _aligner_qkv(shape, dtype, gen, step):
+    """_qkv's inputs, or for a decode step a bias masking the cache
+    positions after ``step``."""
+    if step is None:
+        return _qkv(shape, dtype, gen)
+    q, k, v, bias = _qkv(shape, dtype, gen, pad_keys=False)
+    bias[:, step + 1:] = -1e9
+    return q, k, v, bias
+
+
+def aligner_kernel_phase() -> dict:
+    """K1 against its plain version at the Aligner's shapes in both dtypes,
+    then float32 timed at the decoder's causal self-attention shape beside
+    the plain version, the library call and the bound."""
+    from transformertts_torch.ops.flash_attention import attention_plain, flash_attention
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for shape, causal, step in ALIGNER_CASES:
+            q, k, v, bias = _aligner_qkv(shape, dtype, gen, step)
+            out = flash_attention(q, k, v, bias, causal)
+            torch.cuda.synchronize()
+            ref = attention_plain(q, k, v, bias, causal)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f'K1 output not finite at {shape} {dtype}')
+            torch.testing.assert_close(out.float(), ref.float(), **tol)
+            err = (out.float() - ref.float()).abs().max().item()
+            worst[dtype] = max(worst[dtype], err)
+            log(f'Aligner {dtype} {shape} causal={causal} cache step={step}: max |kernel - '
+                f'plain| {err:.3g}')
+    q, k, v, bias = _qkv(ALIGNER_SELF_SHAPE, torch.float32, gen)
+    ms = _time_ms(lambda: flash_attention(q, k, v, bias, True))
+    plain_ms = _time_ms(lambda: attention_plain(q, k, v, bias, True))
+    b, h, t, _, d = ALIGNER_SELF_SHAPE
+    look_ahead = torch.triu(torch.full((t, t), -1e9, device='cuda'), diagonal=1)
+    mask = bias[:, None, None, :] + look_ahead
+    backend = _sdpa_backend(q, k, v, mask, 0.0)
+    library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
+    # the products the causal mask leaves: row i takes keys 0..i
+    kept = b * h * t * (t + 1) // 2
+    limit = bound(4 * kept * d, 4 * (4 * b * h * t * d) + 4 * b * t, 'f32')
+    log(f'f32 Aligner decoder self-attention {ALIGNER_SELF_SHAPE} causal: kernel {ms:.4f} ms, '
+        f'plain {plain_ms:.4f} ms, scaled_dot_product_attention ({backend}, f32, TF32 off) '
+        f'{library_ms:.4f} ms, bound {limit["bound_ms"]:.4f} ms ({limit["bound_by"]}, '
+        f'{4 * kept * d / 1e9:.2f} GFLOP)')
+    return {'f32_shape': list(ALIGNER_SELF_SHAPE), 'f32_ms': ms, 'f32_plain_ms': plain_ms,
+            'f32_library_ms': library_ms, 'f32_library_backend': backend,
+            'f32_bound_ms': limit['bound_ms'], 'f32_bound_by': limit['bound_by'],
+            'f32_max_abs_err': worst[torch.float32],
+            'aligner_bf16_max_abs_err': worst[torch.bfloat16]}
+
+
+def _durations_of_batch(model, batch):
+    """The extraction CLI's forward and durations for one batch, on the
+    kernel path (``need_weights`` False) and the all-eager path."""
+    from transformertts_torch.extract_durations import LAST_LAYER_KEY
+    from transformertts_torch.ops.duration_extraction import get_durations_from_alignment
+    tokens = torch.as_tensor(batch['tokens'], device=DEVICE)
+    mel = torch.as_tensor(batch['mel'], device=DEVICE)
+    n = int((batch['fname'] != '').sum())
+    maps, durations = {}, {}
+    with torch.inference_mode():
+        for eager in (False, True):
+            out = model.apply(tokens, mel[:, :-1], 1, need_weights=eager)
+            maps[eager] = out['decoder_attention'][LAST_LAYER_KEY][:n]
+            durations[eager] = get_durations_from_alignment(
+                maps[eager], batch['mel'][:n], batch['tokens'][:n], weighted=True)[0]
+    return maps, durations
+
+
+def aligner_phase(cfg) -> dict:
+    """Stage 3 on the card: the published Aligner in float32 through
+    extract_durations over the featurization slice's data dir, then predict
+    and a bfloat16 batch."""
+    from transformertts_torch import extract_durations
+    from transformertts_torch.data.datasets import AlignerDataset, AlignerPreprocessor
+    from transformertts_torch.models.aligner import Aligner
+    from transformertts_torch.ops.flash_attention import flash_attention
+    from transformertts_torch.training import checkpointing
+    from transformertts_torch.utils.config import TrainingConfigManager
+    cm = TrainingConfigManager(cfg, aligner=True)
+    seeded = cm.get_model('cpu').init_params(torch.Generator().manual_seed(SEED))
+    model_dir = WORK / 'aligner_model'
+    seeded.save_model(model_dir)
+    model = Aligner.load_model(model_dir, device=DEVICE)
+    for key, value in seeded.state_dict().items():
+        if not torch.equal(model.state_dict()[key].cpu(), value):
+            raise AssertionError(f'the Aligner model dir did not load back: {key}')
+    ckpt = checkpointing.save_checkpoint(cm.weights_dir, seeded,
+                                         torch.optim.Adam(seeded.parameters()), ALIGNER_R1_STEP)
+    c = model.config
+    log(f'Aligner: d {c["decoder_model_dimension"]}, encoder heads {c["encoder_num_heads"]}, '
+        f'decoder heads {c["decoder_num_heads"]}, feed-forward '
+        f'{c["decoder_feed_forward_dimension"]}, {c["compute_dtype"]}, '
+        f'{sum(p.numel() for p in model.parameters())} parameters; checkpoint '
+        f'{ckpt.name}')
+
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    stats = extract_durations.main(['--config', str(cfg), '--autoregressive_weights',
+                                    str(ckpt), '--device', DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    if launches == 0 or launches != 13 * stats['batches']:
+        raise AssertionError(f'extraction launched K1 {launches} times in {stats["batches"]} '
+                             f'batches, not 13 a batch')
+    mels = {p.stem: np.load(p).shape[0] for p in cm.mel_dir.glob('*.npy')}
+    for name, frames in mels.items():
+        dur_path = cm.duration_dir / f'{name}.npy'
+        pitch_path = cm.pitch_per_char / f'{name}.npy'
+        if not dur_path.exists() or not pitch_path.exists():
+            raise AssertionError(f'{name}: no durations or phoneme-wise pitch written')
+        dur, pitch = np.load(dur_path), np.load(pitch_path)
+        if dur.sum() != frames or pitch.shape != dur.shape or not np.isfinite(pitch).all():
+            raise AssertionError(f'{name}: durations sum to {dur.sum()}, not its {frames} '
+                                 f'frames, or pitch {pitch.shape} vs durations {dur.shape}')
+    clips_per_s = len(mels) / wall
+    log(f'extract_durations: {stats["clips"]} clips in {stats["batches"]} batches, durations '
+        f'sum to each clip\'s mel frames; K1 launches {launches} (13 a batch); DP backend '
+        f'{stats["backend"]}; {wall:.2f} s, {clips_per_s:.2f} clips/s; forward '
+        f'{stats["forward_s"]:.2f} s, DP {stats["dp_s"]:.2f} s, host {stats["host_s"]:.2f} s, '
+        f'char pitch {stats["char_pitch_s"]:.2f} s')
+
+    model = cm.load_model(ckpt, device=DEVICE, verbose=False)
+    prep = AlignerPreprocessor.from_config(cm, model.text_pipeline.tokenizer)
+    batch = next(iter(AlignerDataset.from_config(cm, prep, kind='phonemized').get_dataset(
+        bucket_batch_sizes=cm.config['val_bucket_batch_size'],
+        bucket_boundaries=cm.config['bucket_boundaries'], shuffle=False).all_batches()))
+    maps, durations = _durations_of_batch(model, batch)
+    map_err = (maps[False] - maps[True]).abs().max().item()
+    torch.testing.assert_close(maps[False], maps[True], **ALIGN_MAP_TOL)
+    same = np.mean(np.concatenate([a == b for a, b in zip(durations[False], durations[True])]))
+    log(f'one batch {tuple(batch["mel"].shape)}: kernel-path last-block maps vs all-eager, max '
+        f'|diff| {map_err:.3g} (bar {ALIGN_MAP_TOL["atol"]}); durations equal {same:.4f}')
+
+    # the same weights in bfloat16, one batch
+    model16 = Aligner.from_config({**model.config, 'compute_dtype': 'bfloat16'}, device=DEVICE)
+    model16.load_state_dict(model.state_dict())
+    model16.set_constants(reduction_factor=1)
+    _, durations16 = _durations_of_batch(model16, batch)
+    share16 = np.mean(np.concatenate([a == b for a, b in zip(durations16[False],
+                                                              durations[False])]))
+    log(f'bfloat16 batch: share of token durations equal to the float32 ones {share16:.4f}')
+
+    # predict: random weights say nothing about when to stop, so the stop
+    # class's bias is pushed down and the decode runs to max_length
+    with torch.no_grad():
+        model.decoder_postnet.stop_linear.bias[2] = -1e4
+    sentence = (ROOT / 'config' / 'test_sentences.txt').read_text().splitlines()[0]
+    model.predict(sentence, max_length=8)   # warm-up
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = model.predict(sentence, max_length=PREDICT_MAX_LENGTH)
+    decode_s = time.perf_counter() - t0
+    steps = out['n_steps']
+    # the encoder once, then a step's self-attentions and all but the last
+    # block's cross-attentions
+    n_enc, n_dec = len(model.encoder.dense_layers), len(model.decoder.blocks)
+    per_step = (flash_attention.launches - n_enc) / steps
+    if steps != PREDICT_MAX_LENGTH + 1 or per_step != 2 * n_dec - 1 \
+            or not np.isfinite(out['mel']).all():
+        raise AssertionError(f'predict: {steps} steps, {flash_attention.launches} K1 launches')
+    log(f'predict "{sentence[:40]}...": {steps} decode steps in {decode_s:.3f} s, '
+        f'{steps / decode_s:.1f} steps/s, K1 launches {n_enc} for the encoder and '
+        f'{per_step:.0f} a step ({n_dec} self, {n_dec - 1} cross)')
+    return {'launches': launches, 'clips_per_s': clips_per_s, 'steps_per_s': steps / decode_s,
+            'bf16_same_share': share16, 'map_err': map_err, **stats}
 
 
 def main():
@@ -908,6 +1114,8 @@ def main():
     train = training_phase()
     log_mel = log_mel_kernel_phase()
     featurize = featurization_phase()
+    aligner_kernels = aligner_kernel_phase()
+    aligner = aligner_phase(featurize['config'])
     times = serving['times']
     dec = times['decoder']
     kernels = [{
@@ -923,6 +1131,8 @@ def main():
         'encoder_ms': times['encoder']['ms'],
         'encoder_plain_ms': times['encoder']['plain_ms'],
         **serving['resources'],
+        'extraction_launches': aligner['launches'],
+        **aligner_kernels,
     }]
     t_dec, t_enc = trainable['times']['decoder'], trainable['times']['encoder']
     for i, (name, label, source, line, plain, library) in enumerate((
@@ -967,6 +1177,8 @@ def main():
         f'mel frames/s at B32 x 512 frames')
     log(f'featurization: {featurize["clips_per_s"]:.2f} clips/s, '
         f'{featurize["audio_s_per_s"]:.2f} s of audio/s')
+    log(f'duration extraction: {aligner["clips_per_s"]:.2f} clips/s; predict '
+        f'{aligner["steps_per_s"]:.1f} decode steps/s')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -7,11 +7,17 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_aligner import TINY_ALIGNER
+from test_torch_duration_extraction import write_featurized
 from test_torch_nn import TINY_CONFIG
+from transformertts_torch import extract_durations
 from transformertts_torch.audio import Audio
 from transformertts_torch.audio.pitch import extract_pitch_np
+from transformertts_torch.models.aligner import Aligner
 from transformertts_torch.models.forward_tts import ForwardTransformer
 from transformertts_torch.models.persistence import load_model_dir
+from transformertts_torch.training import checkpointing
+from transformertts_torch.utils.config import TrainingConfigManager
 
 torch.set_num_threads(1)
 
@@ -19,8 +25,23 @@ AUDIO = Audio.from_config(TINY_CONFIG)
 WAV = (0.1 * np.random.default_rng(0).standard_normal(4096)).astype(np.float32)
 MEL = np.full((12, TINY_CONFIG['mel_channels']), -4.0, np.float32)
 
-# entry point -> call(model_dir, **device)
+
+def _extract_durations(d, device=None):
+    argv = ['--config', str(d / 'stage3' / 'session.yaml'), '--skip_char_pitch']
+    return extract_durations.main(argv + (['--device', device] if device else []))
+
+
+# entry point -> call(dir, **device): the dir holds a ForwardTransformer
+# model dir, an Aligner model dir under aligner/ and a featurized session
+# under stage3/
 ENTRY_POINTS = {
+    'Aligner.from_config': lambda d, **dev: Aligner.from_config(TINY_ALIGNER, **dev),
+    'Aligner.load_model': lambda d, **dev: Aligner.load_model(d / 'aligner', **dev),
+    'TrainingConfigManager.load_model(aligner)': lambda d, **dev: TrainingConfigManager(
+        d / 'stage3' / 'session.yaml', aligner=True).load_model(verbose=False, **dev),
+    'extract_durations.main': _extract_durations,
+    'persistence.load_model_dir(Aligner)': lambda d, **dev: load_model_dir(
+        Aligner, d / 'aligner', **dev),
     'ForwardTransformer.load_model': lambda d, **dev: ForwardTransformer.load_model(d, **dev),
     'ForwardTransformer.from_config': lambda d, **dev: ForwardTransformer.from_config(
         TINY_CONFIG, **dev),
@@ -39,6 +60,13 @@ ENTRY_POINTS = {
 def model_dir(tmp_path):
     ForwardTransformer(**TINY_CONFIG).init_params(
         torch.Generator().manual_seed(0)).save_model(tmp_path)
+    Aligner(**TINY_ALIGNER).init_params(torch.Generator().manual_seed(0)).save_model(
+        tmp_path / 'aligner')
+    cm = TrainingConfigManager(write_featurized(tmp_path / 'stage3', n_clips=2), aligner=True)
+    aligner = cm.get_model('cpu').init_params(torch.Generator().manual_seed(0))
+    # step 7: the session's reduction schedule is at r = 1 there
+    checkpointing.save_checkpoint(cm.weights_dir, aligner,
+                                  torch.optim.Adam(aligner.parameters()), 7)
     return tmp_path
 
 
@@ -61,5 +89,7 @@ def test_entry_point_runs_on_the_cpu_when_asked(entry, model_dir):
     out = ENTRY_POINTS[entry](model_dir, device='cpu')
     if isinstance(out, torch.nn.Module):
         assert out.device.type == 'cpu'
+    elif entry == 'extract_durations.main':
+        assert out['clips'] == 2
     else:
         assert isinstance(out, np.ndarray) and out.size > 0 and np.isfinite(out).all()

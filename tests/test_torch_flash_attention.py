@@ -34,6 +34,18 @@ CASES = {
     'published-head-width': (2, 2, 33, 33, 192, False, True),
 }
 
+# the Aligner's shapes at test size, (b, h, tq, tk, d, causal, cache step):
+# the decoder's causal self-attention with padded keys, a cross-attention
+# with Tq >> Tk, the last block's causal self-attention at D 256, and decode
+# steps (Tq 1) against a cache whose positions after the step are masked
+ALIGNER_CASES = {
+    'decoder-self': (2, 4, 300, 300, 64, True, None),
+    'cross': (2, 4, 300, 45, 64, False, None),
+    'last-self-d256': (2, 1, 300, 300, 256, True, None),
+    'decode-step': (1, 4, 1, 300, 64, False, 137),
+    'decode-step-d256': (1, 1, 1, 300, 256, False, 0),
+}
+
 # the bfloat16 design's edges that chip_smoke.py also runs, (b, h, tq, tk, d)
 # and causal, named like '2x2x129x129x192-causal'
 EDGE_IDS = ['x'.join(map(str, shape)) + ('-causal' if causal else '')
@@ -169,3 +181,24 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, bias)
     with pytest.raises(TypeError):
         flash_attention(q.half(), k.half(), v.half(), bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('case', sorted(ALIGNER_CASES))
+def test_kernel_at_the_aligner_shapes(cuda, case, dtype):
+    """K1 where the Aligner runs it: float32 (the SIMT kernel, the Aligner's
+    compute dtype) at the f32 bar, bfloat16 (wgmma) at the bf16 bar."""
+    b, h, tq, tk, d, causal, step = ALIGNER_CASES[case]
+    q, k, v, bias = _torch(*_inputs(b, h, tq, tk, d, padded=step is None, seed=5),
+                           device=cuda)
+    if step is not None:
+        bias[:, step + 1:] = NEG_INF
+    if dtype == 'bfloat16':
+        q, k, v = (x.bfloat16() for x in (q, k, v))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.dtype == q.dtype
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v, bias, causal).float(),
+                               **(TOL if dtype == 'float32' else BF16_TOL))

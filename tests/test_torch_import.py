@@ -16,6 +16,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     'transformertts_torch',
     'transformertts_torch.models',
+    'transformertts_torch.models.aligner',
     'transformertts_torch.models.convert',
     'transformertts_torch.models.forward_tts',
     'transformertts_torch.models.persistence',
@@ -26,7 +27,9 @@ PORT_MODULES = [
     'transformertts_torch.nn.length_regulator',
     'transformertts_torch.nn.masks',
     'transformertts_torch.nn.posenc',
+    'transformertts_torch.native',
     'transformertts_torch.ops.build',
+    'transformertts_torch.ops.duration_extraction',
     'transformertts_torch.ops.flash_attention',
     'transformertts_torch.ops.fused_log_mel',
     'transformertts_torch.audio',
@@ -39,6 +42,7 @@ PORT_MODULES = [
     'transformertts_torch.data',
     'transformertts_torch.data.datasets',
     'transformertts_torch.data.metadata',
+    'transformertts_torch.extract_durations',
     'transformertts_torch.predict_tts',
     'transformertts_torch.profile_train',
     'transformertts_torch.train_tts',
@@ -58,8 +62,10 @@ PORT_MODULES = [
     'transformertts_torch.utils.event_writer',
     'transformertts_torch.utils.logging_utils',
     'transformertts_torch.utils.losses',
+    'transformertts_torch.utils.metrics',
     'transformertts_torch.utils.scheduling',
     'transformertts_torch.utils.scripts_utils',
+    'transformertts_torch.utils.spectrogram_ops',
     'chip_smoke',
 ]
 
@@ -78,6 +84,7 @@ def test_port_imports_no_jax():
     assert not [m for m in loaded if m == 'jax' or m.startswith(('jax.', 'jaxlib'))]
     assert not [m for m in loaded if m.startswith('transformertts_tpu')]
     assert 'transformertts_torch.create_training_data' in loaded
+    assert 'transformertts_torch.extract_durations' in loaded
     # h5py is imported only when an hdf5-only model dir is read
     assert 'transformertts_torch.models.convert' in loaded and 'h5py' not in loaded
 

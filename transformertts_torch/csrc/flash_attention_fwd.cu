@@ -61,6 +61,9 @@
 // - float32 has no tensor-core path at float32 precision (TF32 keeps 10
 //   mantissa bits), so it runs a SIMT kernel on the CUDA cores: 256 threads,
 //   a 4x2 score tile and a 4x(D/16) output tile per thread, 32-key tiles.
+//   Causal, a block stops at the key tile of its last query row (the
+//   Aligner's decoder self-attention, where that halves the work) unless one
+//   of its rows has every key so far masked.
 // - D (the head width) is any multiple of 8 up to 256: 192 at the published
 //   width. Register tiles are sized by a compile-time bound (64/128/192/256)
 //   and guarded at run time, so D need not be a power of two.
@@ -503,7 +506,13 @@ attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
     }
 
-    for (int k0 = 0; k0 < Tk; k0 += BK) {
+    // a causal block's keys past its last query row are all look-ahead
+    // masked: their logits are exactly NEG_INF, so their weights
+    // exp(NEG_INF - m) are exactly 0 and their tiles are skipped, unless a
+    // row's max lies within 128 of NEG_INF (every earlier key masked), where
+    // a fully masked row must still average v over all Tk keys
+    int k_stop = causal ? min(Tk, q0 + BQ) : Tk;
+    for (int k0 = 0; k0 < k_stop; k0 += BK) {
         __syncthreads();   // previous tile's K/V/P reads are done
         for (int idx = tid; idx < BK * D; idx += SIMT_THREADS) {
             int kk = idx / D, d = idx % D;
@@ -583,6 +592,14 @@ attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
                 }
             }
+        }
+
+        if (k0 + BK >= k_stop && k_stop < Tk) {
+            bool low = false;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                low |= q0 + ty + 16 * i < Tq && m[i] < NEG_INF + 128.f;
+            if (__syncthreads_or(low)) k_stop = Tk;
         }
     }
 

@@ -3,9 +3,11 @@
 A model dir is ``config.yaml`` (the constructor config, alphabet and step)
 plus ``model_weights.npz`` keyed by the JAX package's ``flatten_params``
 paths (``encoder/conv_0/sarn/mha/wq/kernel``, ...). Either package loads a
-dir the other wrote. A dir with hdf5 weights only (the reference's
+dir the other wrote, a ForwardTransformer's or an Aligner's. A
+ForwardTransformer dir with hdf5 weights only (the reference's
 ``model_weights.hdf5``, or the JAX package's ``weights_format='hdf5'``) loads
-through ``models/convert.py``, which needs h5py.
+through ``models/convert.py``, which needs h5py; the port has no hdf5 reader
+for the Aligner yet.
 
 Layouts, JAX (Keras) → PyTorch, by leaf:
 
@@ -134,6 +136,11 @@ def load_model_dir(cls, path, device='cuda'):
             flat = {k: data[k] for k in data.files}
     else:
         weights = _hdf5_weights(path)
+        if cls.__name__ != 'ForwardTransformer':
+            raise NotImplementedError(
+                f'{path} holds hdf5 weights only ({weights.name}): the port reads hdf5 '
+                f'ForwardTransformer weights only; the {cls.__name__} hdf5 reader (the JAX '
+                f'package\'s convert_aligner_weights) is not ported yet')
         try:
             import h5py  # noqa: F401  (the readers of models/convert.py use it)
         except ImportError as e:

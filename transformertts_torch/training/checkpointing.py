@@ -54,7 +54,9 @@ def flatten_state(model, optimizer, step: int) -> Dict[str, np.ndarray]:
 
 
 def load_state(flat: Dict[str, np.ndarray], model, optimizer) -> int:
-    """Fill ``model`` and ``optimizer`` from flattened leaves; returns the step."""
+    """Fill ``model`` and ``optimizer`` from flattened leaves; returns the step.
+    With ``optimizer`` None (inference) the Adam moments are read past and
+    dropped."""
     order = _jax_order(params_to_jax(model.state_dict()))
     n = len(order)
     leaves = [flat[f'leaf_{i:05d}'] for i in range(len(flat))]
@@ -67,6 +69,8 @@ def load_state(flat: Dict[str, np.ndarray], model, optimizer) -> int:
         return params_from_jax(dict(zip(order, leaves[start:start + n])))
 
     model.load_state_dict(group(1), strict=True)
+    if optimizer is None:
+        return step
     mu, nu = group(n + 2), group(2 * n + 2)
     optimizer.state.clear()
     if count > 0:
@@ -114,14 +118,15 @@ def save_checkpoint(directory, model, optimizer, step: int, keep_n: int = None,
     return path
 
 
-def restore_checkpoint(path, model, optimizer) -> int:
-    """Load ``path`` into ``model`` and ``optimizer``; returns its step."""
+def restore_checkpoint(path, model, optimizer=None) -> int:
+    """Load ``path`` into ``model`` and ``optimizer`` (None: the weights
+    only); returns its step."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     return load_state(flat, model, optimizer)
 
 
-def restore_latest(directory, model, optimizer) -> Optional[int]:
+def restore_latest(directory, model, optimizer=None) -> Optional[int]:
     """Restore the newest checkpoint and return its step, or None if there
     is none."""
     path = latest_checkpoint(directory)

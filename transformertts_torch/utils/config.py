@@ -6,15 +6,18 @@ The session YAML's sections, with the settings of the model kind (``tts``,
 or ``aligner`` with ``aligner=True``), are merged into one flat dict; the
 session names key the artifact directories, so the port reads and writes the
 same data, log and weight dirs as the JAX package for the same config. The
-model and trainer come from the merged config; the device is the caller's.
-The Aligner is not ported yet: its config resolves the directories that
-featurization writes, and ``get_model`` raises for it.
+model (a ForwardTransformer, or with ``aligner=True`` an Aligner at the
+reduction schedule's first r) and the trainer come from the merged config;
+``load_model`` restores a model from a training checkpoint of either package.
+Models go to the card unless the caller names another device.
 """
 import shutil
 import subprocess
 from pathlib import Path
 
 import yaml
+
+from transformertts_torch.utils.scheduling import reduction_schedule
 
 CONFIG_SECTIONS = ['paths', 'naming', 'training_data_settings', 'audio_settings',
                    'text_settings']
@@ -56,6 +59,12 @@ class TrainingConfigManager:
         self.pitch_dir = self.data_dir / f'pitch.{audio_name}'
         self.duration_dir = self.data_dir / f"durations.{self.session_names['aligner']}"
         self.pitch_per_char = self.data_dir / f"char_pitch.{self.session_names['aligner']}"
+        if self.model_kind == 'aligner':
+            self.max_r = int(self.config['reduction_factor_schedule'][0][1])
+            self.stop_scaling = float(self.config.get('stop_loss_scaling', 1.0))
+            # the JAX trainer's bf16 P·V boundary; the port's f32 kernels compute
+            # P·V in float32 whatever it says (ROADMAP, Queue 1)
+            self.narrow_pv = bool(self.config.get('narrow_pv', True))
 
     @staticmethod
     def _get_git_hash():
@@ -77,16 +86,41 @@ class TrainingConfigManager:
         with open(self.base_dir / 'config.yaml', 'w') as f:
             yaml.safe_dump(dict(self.config), f, allow_unicode=True)
 
-    def get_model(self, device):
-        """A ForwardTransformer of this config on ``device``, parameters
-        uninitialized."""
-        if self.model_kind == 'aligner':
-            raise NotImplementedError('the Aligner is not ported to transformertts_torch yet')
-        from transformertts_torch.models.forward_tts import ForwardTransformer
+    def get_model(self, device='cuda'):
+        """A model of this config on ``device`` (the card unless the caller
+        names another), parameters uninitialized: an Aligner at r = max_r,
+        or a ForwardTransformer."""
         stored = self.config.get('git_hash')
         if stored is not None and self.git_hash is not None and stored != self.git_hash:
             print(f'WARNING: git hash mismatch: current {self.git_hash}, config {stored}')
+        if self.model_kind == 'aligner':
+            from transformertts_torch.models.aligner import Aligner
+            return Aligner.from_config(self.config, max_r=self.max_r, device=device)
+        from transformertts_torch.models.forward_tts import ForwardTransformer
         return ForwardTransformer.from_config(self.config, device)
+
+    def load_model(self, checkpoint_path=None, device='cuda', verbose: bool = True):
+        """The model with the weights of ``checkpoint_path``, or of the latest
+        checkpoint under ``weights_dir`` (fresh weights from seed 42, with a
+        warning, where there is none), on ``device``. An Aligner takes the
+        reduction schedule's r at the restored step."""
+        import torch
+        from transformertts_torch.training import checkpointing
+        model = self.get_model('cpu').init_params(torch.Generator().manual_seed(42))
+        if checkpoint_path is not None:
+            step = checkpointing.restore_checkpoint(checkpoint_path, model)
+        else:
+            step = checkpointing.restore_latest(self.weights_dir, model)
+        if step is None:
+            print(f'WARNING: no checkpoint under {self.weights_dir}; using fresh weights.')
+        else:
+            model.step = step
+            if verbose:
+                print(f'restored weights at step {model.step}')
+        if self.model_kind == 'aligner':
+            model.set_constants(reduction_factor=reduction_schedule(
+                model.step, self.config['reduction_factor_schedule']))
+        return model.to(device)
 
     def get_trainer(self, model):
         from transformertts_torch.training.forward_trainer import ForwardTrainer

@@ -13,9 +13,9 @@ prints no result):
 3. kernel vs plain: the forward kernel (K1) against ``attention_plain`` on
    the card, in float32 and in bfloat16 (padded keys, a fully masked row,
    causal on and off, head widths 24 and 192, the synthesis shapes), and in
-   bfloat16 at the edges of its wgmma design (``EDGE_CASES``), what it uses
-   on the card for each head-width template, then both timed in bfloat16 at
-   the synthesis shapes;
+   both at the edges of its design (``EDGE_CASES``), what its bfloat16
+   kernel uses on the card for each head-width template, then both timed in
+   bfloat16 at the synthesis shapes;
 4. training kernels vs plain: K2 (output and logsumexp), K3 (dQ) and K4
    (dK, dV) against ``attention_fwd_lse_plain``/``attention_bwd_plain`` in
    float32 and bfloat16, at dropout 0 and 0.1 with one (seed, offset), on
@@ -55,13 +55,18 @@ prints no result):
    plain version, the voiced share and the split, in clips/s and seconds of
    audio per second;
 9. Aligner kernel cases: K1 against ``attention_plain`` in float32 (its
-   SIMT kernel, the Aligner's compute dtype) and bfloat16 at the published
-   Aligner's shapes (``ALIGNER_CASES``: the decoder's causal self-attention
-   with padded keys, cross-attention with Tq >> Tk, the last block's causal
-   self-attention at D 256, decode steps of Tq 1 against a masked cache),
-   then K1 float32 timed at the decoder's self-attention shape beside its
-   plain version, ``scaled_dot_product_attention`` in float32 and its bound
-   (causal: only the products the mask leaves);
+   3xTF32 tensor-core kernel, the Aligner's compute dtype) and bfloat16 at
+   the published Aligner's shapes (``ALIGNER_CASES``: the decoder's causal
+   self-attention with padded keys, cross-attention with Tq >> Tk, the last
+   block's causal self-attention at D 256, decode steps of Tq 1 against a
+   masked cache), what the float32 kernel's K1 and K2 instances use on the
+   card for each head-width template (it fails if D 64 or 256 spills), then
+   K1 float32 timed at the decoder's self-attention shape beside its plain
+   version, ``scaled_dot_product_attention`` in float32 and two bounds
+   (causal: only the products the mask leaves; on the CUDA cores, and as
+   3xTF32's three TF32 products on the tensor cores), K1 float32 timed at
+   one decode step, and K2 float32 checked and timed there at dropout 0.1
+   beside the library call with the same dropout;
 10. Aligner slice: config/training_config.yaml's published ``aligner_settings``
    (d 256, encoder heads [4, 4, 4, 4], decoder heads [4, 4, 4, 4, 1], float32)
    with weights drawn from a seed, saved as a model dir and loaded back,
@@ -127,9 +132,9 @@ WIRING_REL_L2_BAR = 1e-3
 GRAD_REL_L2_BAR = 1e-2  # bf16 dQ, dK, dV against the plain version in float32
 LOG_MEL_TOL = dict(atol=2e-4, rtol=1e-3)  # the JAX fused log-mel kernel's bar
 KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'fused_log_mel')
-# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, float32
-# outside them, and HBM3
-PEAK_FLOPS = {'bf16': 989e12, 'f32': 67e12}
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and TF32 tensor cores,
+# float32 outside them, and HBM3
+PEAK_FLOPS = {'bf16': 989e12, 'tf32': 495e12, 'f32': 67e12}
 HBM_BYTES_PER_S = 3.35e12
 N_CLIPS = 64  # synthetic clips the featurization slice featurizes
 # the published Aligner's attention shapes, (B, H, Tq, Tk, D), causal and, for
@@ -297,26 +302,30 @@ def _sdpa_backend(q, k, v, mask, dropout_p: float) -> str:
     return SDPBackend(choice).name
 
 
-def _resources(label: str, query, tile: str) -> dict:
-    """Log what a bf16 kernel uses on the card at each head-width template
-    (``query(d)``, one of ops.flash_attention's ``*_resources``); raise if
-    the training and serving width, D 192, spills or fits no block."""
+def _resources(label: str, query, tile: str, dtype: str = 'bf16',
+               gated=(192,)) -> dict:
+    """Log what a kernel uses on the card at each head-width template
+    (``query(d)``, one of ops.flash_attention's ``*_resources``); raise if a
+    ``gated`` width (the bf16 kernels' training and serving width, D 192;
+    the f32 forward's Aligner widths, D 64 and 256) spills or fits no
+    block. Returns the first gated width's resources."""
     by_d = {d: query(d) for d in (64, 128, 192, 256)}
     for d, r in by_d.items():
-        log(f'{label} bf16 at D {d}: {r["registers"]} registers a thread, '
+        log(f'{label} {dtype} at D {d}: {r["registers"]} registers a thread, '
             f'{r["spill_bytes"]} spill (local) bytes, {r["static_smem_bytes"]} + '
             f'{r["dynamic_smem_bytes"]} B of shared memory a block, {r["blocks_per_sm"]} '
             f'block(s) of {r["threads"]} threads an SM, {tile.replace("_", " ")} {r[tile]}')
-    # the designs keep their accumulators in registers at the published head
-    # width, with a block of 8 warps on an SM
-    if by_d[192]['spill_bytes'] != 0 or by_d[192]['blocks_per_sm'] < 1:
-        raise AssertionError(f'{label} at D 192 spills or does not fit: {by_d[192]}')
-    return by_d[192]
+    # the designs keep their accumulators in registers at these widths
+    for d in gated:
+        if by_d[d]['spill_bytes'] != 0 or by_d[d]['blocks_per_sm'] < 1:
+            raise AssertionError(f'{label} {dtype} at D {d} spills or does not fit: '
+                                 f'{by_d[d]}')
+    return by_d[gated[0]]
 
 
 def kernel_phase() -> dict:
-    """Kernel vs plain in both dtypes (each has its own kernel: SIMT for
-    float32, wgmma for bfloat16, which also takes ``EDGE_CASES``), what the
+    """Kernel vs plain in both dtypes (each has its own kernel: 3xTF32 on
+    mma.sync for float32, wgmma for bfloat16) and ``EDGE_CASES``, what the
     bf16 kernel uses on the card, then both timed at the slice shapes."""
     from transformertts_torch.ops.flash_attention import (attention_plain, flash_attention,
                                                           fwd_resources)
@@ -326,7 +335,7 @@ def kernel_phase() -> dict:
              (ENCODER_SHAPE, False), (DECODER_SHAPE, False)]
     errors = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for shape, causal in cases + (EDGE_CASES if dtype == torch.bfloat16 else []):
+        for shape, causal in cases + EDGE_CASES:
             q, k, v, bias = _qkv(shape, dtype, gen)
             out = flash_attention(q, k, v, bias, causal)
             torch.cuda.synchronize()
@@ -945,9 +954,9 @@ def _aligner_qkv(shape, dtype, gen, step):
 
 def aligner_kernel_phase() -> dict:
     """K1 against its plain version at the Aligner's shapes in both dtypes,
-    then float32 timed at the decoder's causal self-attention shape beside
-    the plain version, the library call and the bound."""
-    from transformertts_torch.ops.flash_attention import attention_plain, flash_attention
+    what the float32 kernel uses on the card, then ``aligner_f32_times``."""
+    from transformertts_torch.ops.flash_attention import (attention_plain, flash_attention,
+                                                          fwd_resources)
     gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -963,27 +972,95 @@ def aligner_kernel_phase() -> dict:
             worst[dtype] = max(worst[dtype], err)
             log(f'Aligner {dtype} {shape} causal={causal} cache step={step}: max |kernel - '
                 f'plain| {err:.3g}')
-    q, k, v, bias = _qkv(ALIGNER_SELF_SHAPE, torch.float32, gen)
-    ms = _time_ms(lambda: flash_attention(q, k, v, bias, True))
-    plain_ms = _time_ms(lambda: attention_plain(q, k, v, bias, True))
+    resources = {label: _resources(label, lambda d: fwd_resources(d, train, torch.float32),
+                                   'key_tile', 'f32', gated=(64, 256))
+                 for label, train in (('K1', False), ('K2', True))}
+    times = aligner_f32_times(gen)
+    return {'f32_max_abs_err': worst[torch.float32],
+            'aligner_bf16_max_abs_err': worst[torch.bfloat16],
+            'f32_resources': resources, **times}
+
+
+def aligner_f32_times(gen) -> dict:
+    """The float32 forward where the Aligner runs it, each time beside its
+    plain version, ``scaled_dot_product_attention`` on the same inputs and
+    its bounds: K1 at the decoder's causal self-attention and at one decode
+    step (Tq 1 against a 1000-position cache), then K2 at the
+    self-attention shape at dropout 0.1, checked against its plain version
+    first. It calls only the wrappers, so a parent tree's kernels take the
+    same calls (a parent/change comparison in one run)."""
+    from transformertts_torch.ops import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h, t, _, d = ALIGNER_SELF_SHAPE
+    q, k, v, bias = _qkv(ALIGNER_SELF_SHAPE, torch.float32, gen)
+    ms = _time_ms(lambda: fa.flash_attention(q, k, v, bias, True))
+    plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v, bias, True))
+    # the library's additive (B, 1, T, T) mask: key padding plus the look-ahead
     look_ahead = torch.triu(torch.full((t, t), -1e9, device='cuda'), diagonal=1)
     mask = bias[:, None, None, :] + look_ahead
     backend = _sdpa_backend(q, k, v, mask, 0.0)
-    library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask))
-    # the products the causal mask leaves: row i takes keys 0..i
+    library_ms = _time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+    # the products the causal mask leaves: row i takes keys 0..i; on the
+    # tensor cores 3xTF32 makes each of them three TF32 products
     kept = b * h * t * (t + 1) // 2
-    limit = bound(4 * kept * d, 4 * (4 * b * h * t * d) + 4 * b * t, 'f32')
+    nbytes = 4 * (4 * b * h * t * d) + 4 * b * t
+    limit = bound(4 * kept * d, nbytes, 'f32')
+    tf32 = bound(3 * 4 * kept * d, nbytes, 'tf32')
     log(f'f32 Aligner decoder self-attention {ALIGNER_SELF_SHAPE} causal: kernel {ms:.4f} ms, '
         f'plain {plain_ms:.4f} ms, scaled_dot_product_attention ({backend}, f32, TF32 off) '
-        f'{library_ms:.4f} ms, bound {limit["bound_ms"]:.4f} ms ({limit["bound_by"]}, '
-        f'{4 * kept * d / 1e9:.2f} GFLOP)')
+        f'{library_ms:.4f} ms, bound {limit["bound_ms"]:.4f} ms on the CUDA cores '
+        f'({limit["bound_by"]}, {4 * kept * d / 1e9:.2f} GFLOP), 3xTF32 bound '
+        f'{tf32["bound_ms"]:.4f} ms ({tf32["bound_by"]}, {12 * kept * d / 1e9:.2f} GFLOP)')
+
+    # one decode step of predict: Tq 1, the cache positions after it masked
+    dshape, _, step = ALIGNER_CASES[4]
+    dq_, dk_, dv_, dbias = _aligner_qkv(dshape, torch.float32, gen, step)
+    decode_ms = _time_ms(lambda: fa.flash_attention(dq_, dk_, dv_, dbias))
+    decode_plain_ms = _time_ms(lambda: fa.attention_plain(dq_, dk_, dv_, dbias))
+    decode_library_ms = _time_ms(lambda: sdpa(dq_, dk_, dv_,
+                                              attn_mask=dbias[:, None, None, :]))
+    db, dh, dtq, dtk, dd = dshape
+    decode_limit = bound(4 * db * dh * dtq * dtk * dd,
+                         4 * (2 * db * dh * dtq * dd + 2 * db * dh * dtk * dd) + 4 * db * dtk,
+                         'f32')
+    log(f'f32 Aligner decode step {dshape}, cache step {step}: kernel {decode_ms:.4f} ms, '
+        f'plain {decode_plain_ms:.4f} ms, scaled_dot_product_attention '
+        f'{decode_library_ms:.4f} ms, bound {decode_limit["bound_ms"]:.4f} ms '
+        f'({decode_limit["bound_by"]})')
+
+    # K2 at the self-attention shape, dropout 0.1
+    args = (True, 0.1, 1234, 5678)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.attention_fwd_lse_plain(q, k, v, bias, *args)
+    torch.testing.assert_close(out, ref_out, **F32_TOL)
+    torch.testing.assert_close(lse, ref_lse, **F32_TOL)
+    k2_err = max((out - ref_out).abs().max().item(), (lse - ref_lse).abs().max().item())
+    del out, lse, ref_out, ref_lse
+    k2_ms = _time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, bias, *args))
+    k2_plain_ms = _time_ms(lambda: fa.attention_fwd_lse_plain(q, k, v, bias, *args))
+    k2_backend = _sdpa_backend(q, k, v, mask, 0.1)
+    k2_library_ms = _time_ms(lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=0.1))
+    k2_bytes = nbytes + 8 * b * h * t   # and the (m, log l) pairs
+    k2_limit = bound(4 * kept * d, k2_bytes, 'f32')
+    k2_tf32 = bound(3 * 4 * kept * d, k2_bytes, 'tf32')
+    log(f'f32 K2 {ALIGNER_SELF_SHAPE} causal, dropout 0.1: max |kernel - plain| {k2_err:.3g} '
+        f'(out, lse); kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, '
+        f'scaled_dot_product_attention ({k2_backend}, dropout 0.1) {k2_library_ms:.4f} ms, '
+        f'bound {k2_limit["bound_ms"]:.4f} ms, 3xTF32 bound {k2_tf32["bound_ms"]:.4f} ms')
     return {'f32_shape': list(ALIGNER_SELF_SHAPE), 'f32_ms': ms, 'f32_plain_ms': plain_ms,
             'f32_library_ms': library_ms, 'f32_library_backend': backend,
             'f32_bound_ms': limit['bound_ms'], 'f32_bound_by': limit['bound_by'],
-            'f32_max_abs_err': worst[torch.float32],
-            'aligner_bf16_max_abs_err': worst[torch.bfloat16]}
+            'f32_tf32x3_bound_ms': tf32['bound_ms'], 'f32_tf32x3_bound_by': tf32['bound_by'],
+            'f32_decode_shape': list(dshape), 'f32_decode_ms': decode_ms,
+            'f32_decode_plain_ms': decode_plain_ms,
+            'f32_decode_library_ms': decode_library_ms,
+            'f32_decode_bound_ms': decode_limit['bound_ms'],
+            'k2': {'f32_shape': list(ALIGNER_SELF_SHAPE), 'f32_dropout': 0.1,
+                   'f32_max_abs_err': k2_err, 'f32_ms': k2_ms, 'f32_plain_ms': k2_plain_ms,
+                   'f32_library_ms': k2_library_ms, 'f32_library_backend': k2_backend,
+                   'f32_bound_ms': k2_limit['bound_ms'],
+                   'f32_tf32x3_bound_ms': k2_tf32['bound_ms']}}
 
 
 def _durations_of_batch(model, batch):
@@ -1115,6 +1192,8 @@ def main():
     log_mel = log_mel_kernel_phase()
     featurize = featurization_phase()
     aligner_kernels = aligner_kernel_phase()
+    k2_f32 = aligner_kernels.pop('k2')
+    f32_resources = aligner_kernels.pop('f32_resources')
     aligner = aligner_phase(featurize['config'])
     times = serving['times']
     dec = times['decoder']
@@ -1132,7 +1211,7 @@ def main():
         'encoder_plain_ms': times['encoder']['plain_ms'],
         **serving['resources'],
         'extraction_launches': aligner['launches'],
-        **aligner_kernels,
+        **aligner_kernels, 'f32_resources': f32_resources['K1'],
     }]
     t_dec, t_enc = trainable['times']['decoder'], trainable['times']['encoder']
     for i, (name, label, source, line, plain, library) in enumerate((
@@ -1155,7 +1234,8 @@ def main():
             'encoder_ms': t_enc[label], 'encoder_plain_ms': t_enc[plain],
         })
     rel_l2 = trainable['rel_l2']
-    kernels[1].update(trainable['resources']['K2'])
+    kernels[1].update(trainable['resources']['K2'], **k2_f32,
+                      f32_resources=f32_resources['K2'])
     kernels[-2].update(rel_l2_dq=rel_l2['dq'], **trainable['resources']['K3'])
     kernels[-1].update(rel_l2_dk=rel_l2['dk'], rel_l2_dv=rel_l2['dv'],
                        **trainable['resources']['K4'])

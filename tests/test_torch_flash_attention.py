@@ -16,8 +16,10 @@ import pytest
 import torch
 
 from chip_smoke import EDGE_CASES
-from transformertts_torch.ops.flash_attention import (NEG_INF, attention_plain,
-                                                      flash_attention, fwd_resources)
+from transformertts_torch.ops.flash_attention import (NEG_INF, attention_fwd_lse_plain,
+                                                      attention_plain, flash_attention,
+                                                      flash_attention_fwd_lse,
+                                                      fwd_resources)
 
 torch.set_num_threads(1)
 
@@ -118,6 +120,179 @@ def test_other_devices_raise_instead_of_falling_back():
         flash_attention(q, k, v, bias)
 
 
+# ---------------------------------------------------------------------------
+# the float32 kernel's design, redone on the CPU: 3xTF32 products, 64-row
+# query blocks, key tiles in an online softmax with the causal stop, and the
+# m16n8k8 fragment layouts (csrc/flash_attention_fwd.cu, attn_fwd_tf32_kernel)
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+F32_ROWS = 64
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: float32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (on the sign-magnitude bits: add half of the
+    13 dropped bits' unit, clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the tensor cores compute it from TF32 operands: 3 passes are
+    3xTF32 (big·small + small·big + big·big, small = tf32(x − big)), 1 pass
+    one TF32 product."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return ab @ _tf32(b - bb) + _tf32(a - ab) @ bb + ab @ bb
+
+
+def _emulate_tf32_kernel(q, k, v, bias, causal: bool, passes: int) -> torch.Tensor:
+    """The kernel's arithmetic in float32 torch ops, one (b, h) and one
+    64-row query block at a time: key tiles of 64 (D <= 64) or 32, a causal
+    block stopping at its last row's tile unless a live row's max lies
+    within 128 of NEG_INF, logits fmaf(s, scale, bias) in natural units,
+    exp2 of (x − m)·log2 e, S and P·V as ``passes`` TF32 products."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    tile = 64 if d <= 64 else 32
+    scale = float(np.float32(1.0 / np.sqrt(d)))   # the wrapper passes a c_float
+    n_tiles = -(-tk // tile)
+    out = torch.empty_like(q)
+    for bi in range(b):
+        for hi in range(h):
+            for q0 in range(0, tq, F32_ROWS):
+                qb = q[bi, hi, q0:q0 + F32_ROWS]
+                rows = torch.arange(q0, q0 + qb.shape[0])[:, None]
+                m = torch.full((qb.shape[0],), -np.inf)
+                l = torch.zeros(qb.shape[0])
+                o = torch.zeros(qb.shape[0], d)
+                n_load = min(n_tiles, -(-(q0 + F32_ROWS) // tile)) if causal else n_tiles
+                i = 0
+                while i < n_load:
+                    kt, vt = k[bi, hi, i * tile:(i + 1) * tile], v[bi, hi, i * tile:(i + 1) * tile]
+                    cols = torch.arange(i * tile, i * tile + kt.shape[0])[None, :]
+                    s = _product(qb, kt.T, passes)
+                    # fmaf: the product is exact in float64, one rounding
+                    x = (s.double() * scale + bias[bi, cols].double()).float()
+                    if causal:
+                        x = x.masked_fill(cols > rows, NEG_INF)
+                    m_new = torch.maximum(m, x.amax(dim=-1))
+                    alpha = torch.exp2((m - m_new) * LOG2E)
+                    p = torch.exp2((x - m_new[:, None]) * LOG2E)
+                    l = l * alpha + p.sum(dim=-1)
+                    o = o * alpha[:, None] + _product(p, vt, passes)
+                    m = m_new
+                    if i == n_load - 1 and n_load < n_tiles and (m < NEG_INF + 128).any():
+                        n_load = n_tiles
+                    i += 1
+                out[bi, hi, q0:q0 + F32_ROWS] = o / l[:, None]
+    return out
+
+
+def _mma_m16n8k8(a_regs, b_regs):
+    """mma.sync m16n8k8 .tf32 from the 32 lanes' registers by the PTX
+    layouts (lane = 4 g + t): A a[r] at (g + 8 (r & 1), t + 4 (r >> 1)),
+    B b[r] at (k t + 4 r, column g); returns the (16, 8) product."""
+    a, bm = torch.zeros(16, 8, dtype=torch.float64), torch.zeros(8, 8, dtype=torch.float64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for r in range(4):
+            a[g + 8 * (r & 1), t + 4 * (r >> 1)] = a_regs[lane][r]
+        for r in range(2):
+            bm[t + 4 * r, g] = b_regs[lane][r]
+    return a @ bm
+
+
+def _check_pv_key_permutation():
+    """P·V of one 8-key step with P in S's accumulator registers (d[e] at
+    (g + 8 (e >> 1), 2 t + (e & 1))) and a one-hot V, whose product is P
+    itself: the kernel's A = (d0, d2, d1, d3) with B reading keys 2t, 2t+1
+    gives P; S's registers as A unpermuted, with B reading keys t, t+4,
+    scramble its columns."""
+    rng = np.random.default_rng(7)
+    p = torch.from_numpy(rng.random((16, 8)))
+    v = torch.eye(8, dtype=torch.float64)   # key j puts its weight in column j
+    d = [[p[lane // 4 + 8 * (e >> 1), 2 * (lane % 4) + (e & 1)].item() for e in range(4)]
+         for lane in range(32)]
+    kernel = _mma_m16n8k8([[r[0], r[2], r[1], r[3]] for r in d],
+                          [[v[2 * (lane % 4) + r, lane // 4].item() for r in range(2)]
+                           for lane in range(32)])
+    naive = _mma_m16n8k8(d, [[v[lane % 4 + 4 * r, lane // 4].item() for r in range(2)]
+                             for lane in range(32)])
+    torch.testing.assert_close(kernel, p @ v, atol=0, rtol=0)
+    assert not torch.equal(naive, p @ v)
+
+
+# the Aligner's shapes at emulation size, (b, h, tq, tk, d, causal), each
+# with the first sample's last keys masked; 'masked-row' also masks every
+# key of the last sample. 2-3 key tiles a block, 2-3 query blocks.
+TF32_CASES = {
+    'causal-d64': (2, 2, 150, 150, 64, True),
+    'causal-d256': (1, 2, 90, 90, 256, True),
+    'masked-row-d64': (2, 2, 100, 130, 64, False),
+}
+
+
+@pytest.mark.parametrize('case', sorted(TF32_CASES) + ['pv-key-permutation'])
+def test_tf32x3_design_arithmetic(case):
+    """The float32 kernel's design meets the float32 bar: 3xTF32 S and P·V
+    in its online softmax come within TOL of attention_plain and of a
+    float64 reference, where one TF32 product does not; and P·V's permuted
+    key order (P fed from S's registers) computes P·V."""
+    if case == 'pv-key-permutation':
+        _check_pv_key_permutation()
+        return
+    b, h, tq, tk, d, causal = TF32_CASES[case]
+    q, k, v, bias = _torch(*_inputs(b, h, tq, tk, d, padded=True, seed=11))
+    if case.startswith('masked-row'):
+        bias[-1] = NEG_INF
+    ref64 = attention_fwd_lse_plain(q.double(), k.double(), v.double(), bias.double(),
+                                    causal)[0]
+    live = slice(None)
+    three = _emulate_tf32_kernel(q, k, v, bias, causal, passes=3)
+    torch.testing.assert_close(three, attention_plain(q, k, v, bias, causal), **TOL)
+    if case.startswith('masked-row'):
+        # float64 keeps the real logits apart from -1e9; float32 (the
+        # kernel, the plain version) rounds them onto it: the mean of v
+        torch.testing.assert_close(three[-1], v[-1].mean(dim=1, keepdim=True).expand_as(three[-1]),
+                                   **TOL)
+        live = slice(0, -1)
+    torch.testing.assert_close(three[live].double(), ref64[live], **TOL)
+    one = _emulate_tf32_kernel(q, k, v, bias, causal, passes=1)
+    assert not torch.allclose(one[live].double(), ref64[live], **TOL)
+
+
+def _sw_off(r, c, rows):
+    """Byte offset of (r, c) in a tile of 32-column, 128-byte-row boxes of
+    ``rows`` rows under the 128-byte swizzle (the kernel's sw_off)."""
+    return (c >> 5) * rows * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2)
+
+
+@pytest.mark.parametrize('operand', ['Q', 'K', 'V'])
+def test_tf32_fragment_loads_read_distinct_banks(operand):
+    """Each fragment load of the float32 kernel (Q's A, K's and V's B, for
+    every 8-column step and register) has its 32 lanes on 32 distinct
+    banks, and the swizzled layout holds each element of a tile once."""
+    rows, dmax = (F32_ROWS, 256) if operand == 'Q' else (32, 256)
+    offsets = {_sw_off(r, c, rows) for r in range(rows) for c in range(dmax)}
+    assert len(offsets) == rows * dmax and max(offsets) < rows * dmax * 4
+    for step in range(dmax // 8 if operand != 'V' else rows // 8):
+        for reg in range(4 if operand == 'Q' else 2):
+            banks = set()
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                if operand == 'Q':    # rows 16 w + g (+8), columns 8 kd + t (+4)
+                    r, c = 16 + g + 8 * (reg & 1), 8 * step + t + 4 * (reg >> 1)
+                elif operand == 'K':  # key 8 n + g, columns 8 kd + t (+4)
+                    r, c = 8 + g, 8 * step + t + 4 * reg
+                else:                 # keys 8 kk + 2 t (+1), column 8 j + g
+                    r, c = 8 * step + 2 * t + reg, 40 + g
+                banks.add(_sw_off(r, c, rows) // 4 % 32)
+            assert len(banks) == 32, (operand, step, reg)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -158,17 +333,29 @@ def test_kernel_bfloat16_at_the_design_edges(cuda, shape, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
 @pytest.mark.parametrize('train', [False, True])
 @pytest.mark.parametrize('d', [64, 128, 192, 256])
-def test_kernel_keeps_its_accumulators_in_registers(cuda, d, train):
-    """The bfloat16 design, K1's instance and K2's: a block of two
+def test_kernel_keeps_its_accumulators_in_registers(cuda, d, train, dtype):
+    """K1's instance and K2's of both designs. bfloat16: a block of two
     warpgroups fits an SM, with Q and a ring of at least two K/V stages in
-    shared memory, and O stays in registers (no local memory)."""
-    res = fwd_resources(d, train)
-    assert res['threads'] == 256 and res['blocks_per_sm'] >= 1
-    assert res['spill_bytes'] == 0 and res['registers'] <= 255
-    assert res['stages'] == (4 if d <= 128 else 3 if d <= 192 else 2)
+    shared memory, and O stays in registers (no local memory). float32: a
+    block of 4 warps with Q and its ring fits, and O stays in registers at
+    the Aligner's widths, D 64 and 256 (the others' spill bytes are
+    printed)."""
+    res = fwd_resources(d, train, getattr(torch, dtype))
+    assert res['blocks_per_sm'] >= 1 and res['registers'] <= 255
     assert res['dynamic_smem_bytes'] <= 232448
+    if dtype == 'bfloat16':
+        assert res['threads'] == 256 and res['spill_bytes'] == 0
+        assert res['stages'] == (4 if d <= 128 else 3 if d <= 192 else 2)
+        return
+    assert res['threads'] == 128
+    assert res['stages'] == (3 if d == 192 else 2)
+    assert res['key_tile'] == (64 if d <= 64 else 32)
+    print(f'float32 D {d} train {train}: {res}')
+    if d in (64, 256):
+        assert res['spill_bytes'] == 0
 
 
 @pytest.mark.cuda
@@ -187,8 +374,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('case', sorted(ALIGNER_CASES))
 def test_kernel_at_the_aligner_shapes(cuda, case, dtype):
-    """K1 where the Aligner runs it: float32 (the SIMT kernel, the Aligner's
-    compute dtype) at the f32 bar, bfloat16 (wgmma) at the bf16 bar."""
+    """K1 where the Aligner runs it: float32 (3xTF32 on mma.sync, the
+    Aligner's compute dtype) at the f32 bar, bfloat16 (wgmma) at the bf16
+    bar."""
     b, h, tq, tk, d, causal, step = ALIGNER_CASES[case]
     q, k, v, bias = _torch(*_inputs(b, h, tq, tk, d, padded=step is None, seed=5),
                            device=cuda)
@@ -202,3 +390,87 @@ def test_kernel_at_the_aligner_shapes(cuda, case, dtype):
     assert flash_attention.launches == before + 1 and out.dtype == q.dtype
     torch.testing.assert_close(out.float(), attention_plain(q, k, v, bias, causal).float(),
                                **(TOL if dtype == 'float32' else BF16_TOL))
+
+
+# the float32 design's edges beyond EDGE_CASES: head widths 8 (one 8-column
+# step) and 24 (a 32-column box zero-filled past D), causal with Tq < Tk
+F32_EDGE_CASES = EDGE_CASES + [((2, 2, 45, 70, 8), True), ((3, 1, 70, 33, 24), False)]
+F32_EDGE_IDS = EDGE_IDS + ['2x2x45x70x8-causal', '3x1x70x33x24']
+
+
+def _forward(kernel, q, k, v, bias, causal, rate=0.1):
+    """(out, lse, plain out, plain lse): K1's (lse None) or K2's at dropout
+    ``rate`` with one (seed, offset), and the plain version's."""
+    if kernel == 'K1':
+        out = flash_attention(q, k, v, bias, causal)
+        torch.cuda.synchronize()
+        return out, None, attention_plain(q, k, v, bias, causal), None
+    args = (causal, rate, 1234, 5678)
+    out, lse = flash_attention_fwd_lse(q, k, v, bias, *args)
+    torch.cuda.synchronize()
+    return (out, lse, *attention_fwd_lse_plain(q, k, v, bias, *args))
+
+
+def _assert_forward_close(out, lse, ref, ref_lse):
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, **TOL)
+    if lse is not None:
+        torch.testing.assert_close(lse, ref_lse, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kernel', ['K1', 'K2'])
+@pytest.mark.parametrize('shape,causal', F32_EDGE_CASES, ids=F32_EDGE_IDS)
+def test_float32_kernel_at_the_design_edges(cuda, shape, causal, kernel):
+    """The 3xTF32 kernel, K1's instance and K2's (dropout 0.1), where its
+    tiles, ring, boxes and causal stop are ragged, with the first sample's
+    last keys and the last sample's every key masked, at the f32 bar."""
+    b, h, tq, tk, d = shape
+    q, k, v, bias = _torch(*_inputs(b, h, tq, tk, d, padded=True, seed=4), device=cuda)
+    bias[-1] = NEG_INF
+    _assert_forward_close(*_forward(kernel, q, k, v, bias, causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kernel', ['K1', 'K2'])
+@pytest.mark.parametrize('d', [8, 64, 256])
+def test_float32_decode_step_against_a_masked_cache(cuda, d, kernel):
+    """Tq 1 (one decode step of the Aligner's predict) against a cache
+    whose positions after the step are masked: one query row in a block of
+    64, one or more key tiles past the step."""
+    q, k, v, bias = _torch(*_inputs(2, 3, 1, 300, d, padded=False, seed=6), device=cuda)
+    bias[:, 138:] = NEG_INF
+    _assert_forward_close(*_forward(kernel, q, k, v, bias, causal=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ALIGNER_CASES))
+def test_k2_float32_at_the_aligner_shapes_with_dropout(cuda, case):
+    """K2's float32 instance, the forward of the Aligner's training step,
+    at dropout 0.1 against the plain version fed the same mask."""
+    b, h, tq, tk, d, causal, step = ALIGNER_CASES[case]
+    q, k, v, bias = _torch(*_inputs(b, h, tq, tk, d, padded=step is None, seed=5),
+                           device=cuda)
+    if step is not None:
+        bias[:, step + 1:] = NEG_INF
+    before = flash_attention_fwd_lse.launches
+    result = _forward('K2', q, k, v, bias, causal)
+    assert flash_attention_fwd_lse.launches == before + 1
+    _assert_forward_close(*result)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('d,tk', [(64, 64), (256, 96)])
+def test_float32_kernel_with_one_hot_v_returns_the_weights(cuda, d, tk):
+    """V = the identity (key j puts its weight in column j), so the output
+    is the softmax weights themselves: a key order of P·V that does not
+    match P's registers would show as permuted columns."""
+    q, k, _, bias = _torch(*_inputs(2, 2, 80, tk, d, padded=True, seed=8), device=cuda)
+    v = torch.eye(tk, d, device=cuda).expand(2, 2, tk, d).contiguous()
+    out = flash_attention(q, k, v, bias, causal=True)
+    torch.cuda.synchronize()
+    logits = q @ k.transpose(-1, -2) / d ** 0.5 + bias[:, None, None, :]
+    rows, cols = torch.arange(80, device=cuda)[:, None], torch.arange(tk, device=cuda)[None]
+    weights = torch.softmax(logits.masked_fill(cols > rows, NEG_INF), dim=-1)
+    torch.testing.assert_close(out[..., :tk], weights, **TOL)
+    assert not out[..., tk:].any()

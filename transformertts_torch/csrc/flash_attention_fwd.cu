@@ -58,12 +58,27 @@
 //   in registers (DP / 2 floats a thread).
 //   The logits stay in natural units, so the -1e9 mask constants and m are
 //   exactly what K3/K4 recompute; the exponent is (x - m) * log2(e) in exp2f.
-// - float32 has no tensor-core path at float32 precision (TF32 keeps 10
-//   mantissa bits), so it runs a SIMT kernel on the CUDA cores: 256 threads,
-//   a 4x2 score tile and a 4x(D/16) output tile per thread, 32-key tiles.
-//   Causal, a block stops at the key tile of its last query row (the
-//   Aligner's decoder self-attention, where that halves the work) unless one
-//   of its rows has every key so far masked.
+// - float32 (the Aligner) runs both products on the tensor cores at float32
+//   accuracy, as 3xTF32: each operand x is split in registers into
+//   big = tf32(x) and small = tf32(x - big) (cvt.rna's rounding, done with
+//   integer operations), and each product is
+//   big.big + big.small + small.big, summed in float32 (small.small, 2^-22
+//   of it, is dropped); one TF32 product keeps 10 mantissa bits and misses
+//   the float32 bar. The instruction is mma.sync m16n8k8 .tf32, not wgmma:
+//   wgmma takes TF32 operands from shared memory only K-major (V would need
+//   a transposed copy) and both halves there (Q and one K/V stage at D 256
+//   would not fit). A block is 4 warps, 16 query rows each, 64 rows a
+//   block; the grid takes the heaviest (last) query blocks first. Q's tile
+//   is loaded once, K and V come in 64-key tiles (32 at D > 64) through a
+//   ring of 2 stages (3 at D 192) that TMA fills under mbarriers, as for
+//   bf16, in 32-column boxes (128-byte rows) under the 128-byte swizzle, so
+//   every fragment load of Q, K and V reads 32 distinct banks. The m16n8k8
+//   accumulator (columns 2t, 2t+1) is not its A layout (columns t, t+4), so
+//   P.V reads V's B fragment in a permuted key order that matches P's
+//   registers (see attn_fwd_tf32_kernel). Causal, a block stops loading at
+//   the key tile of its last query row (the Aligner's decoder
+//   self-attention, where that halves the work) unless one of its rows has
+//   every key so far masked; then it takes every tile.
 // - D (the head width) is any multiple of 8 up to 256: 192 at the published
 //   width. Register tiles are sized by a compile-time bound (64/128/192/256)
 //   and guarded at run time, so D need not be a power of two.
@@ -239,21 +254,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Thread 0: key tile i's K and V into its stage, once the stage's previous
-// tile has been released by every warp.
-template <int DMAX, int STAGES>
-__device__ __forceinline__ void load_kv_tile(int i, int bh, uint32_t ring, uint32_t full_bar,
-                                             uint32_t empty_bar, const CUtensorMap* kmap,
-                                             const CUtensorMap* vmap) {
-    constexpr uint32_t KV_BYTES = (DMAX / BOX) * KV_BOX_BYTES;
+// Thread 0: key tile i's K and V, nb boxes of `cols` columns each, into its
+// stage of the ring, once the stage's previous tile has been released by
+// every warp. Both kernels' boxes have 128-byte rows.
+template <int TILE, int STAGES, uint32_t KV_BYTES>
+__device__ __forceinline__ void load_kv_tile(int i, int nb, int cols, int bh, uint32_t ring,
+                                             uint32_t full_bar, uint32_t empty_bar,
+                                             const CUtensorMap* kmap, const CUtensorMap* vmap) {
+    constexpr uint32_t BOX_BYTES = TILE * 128;
     const int s = i % STAGES;
     if (i >= STAGES) mbar_wait(empty_bar + 8 * s, (i / STAGES - 1) & 1);
-    mbar_expect_tx(full_bar + 8 * s, 2 * KV_BYTES);
+    mbar_expect_tx(full_bar + 8 * s, 2 * nb * BOX_BYTES);
     const uint32_t dst = ring + s * 2 * KV_BYTES;
-#pragma unroll
-    for (int j = 0; j < DMAX / BOX; ++j) {
-        tma_load(dst + j * KV_BOX_BYTES, kmap, j * BOX, i * KEYS, bh, full_bar + 8 * s);
-        tma_load(dst + KV_BYTES + j * KV_BOX_BYTES, vmap, j * BOX, i * KEYS, bh,
+    for (int j = 0; j < nb; ++j) {
+        tma_load(dst + j * BOX_BYTES, kmap, j * cols, i * TILE, bh, full_bar + 8 * s);
+        tma_load(dst + KV_BYTES + j * BOX_BYTES, vmap, j * cols, i * TILE, bh,
                  full_bar + 8 * s);
     }
 }
@@ -302,7 +317,8 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int j = 0; j < NB; ++j)
             tma_load(q_smem + j * Q_BOX_BYTES, &qmap, j * BOX, q0, bh, q_bar);
         for (int i = 0; i < STAGES - 1 && i < n_tiles; ++i)
-            load_kv_tile<DMAX, STAGES>(i, bh, ring, full_bar, empty_bar, &kmap, &vmap);
+            load_kv_tile<KEYS, STAGES, KV_BYTES>(i, NB, BOX, bh, ring, full_bar, empty_bar,
+                                                 &kmap, &vmap);
     }
 
     const int row0 = q0 + wg * WG_ROWS + warp * 16 + g;   // rows row0, row0 + 8
@@ -328,8 +344,8 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     for (int i = 0; i < n_tiles; ++i) {
         if (tid == 0 && i + STAGES - 1 < n_tiles)
-            load_kv_tile<DMAX, STAGES>(i + STAGES - 1, bh, ring, full_bar, empty_bar, &kmap,
-                                       &vmap);
+            load_kv_tile<KEYS, STAGES, KV_BYTES>(i + STAGES - 1, NB, BOX, bh, ring, full_bar,
+                                                 empty_bar, &kmap, &vmap);
         const int stage = i % STAGES, k0 = i * KEYS;
         // the bias of this thread's 16 keys, read while the tile lands
         float bk[16];
@@ -444,178 +460,293 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores (SIMT)
+// float32: 3xTF32 on mma.sync m16n8k8, K/V tiles that TMA brings into a ring
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;          // queries per block, as MQ
-constexpr int BK = 32;          // keys per tile
-constexpr int SIMT_THREADS = 256;   // 16 x 16 threads
-constexpr int QT_STRIDE = BQ + 1;
-constexpr int KT_STRIDE = BK + 1;
-constexpr int PT_STRIDE = BQ + 1;
+constexpr int F32_WARPS = 4;
+constexpr int F32_THREADS = 32 * F32_WARPS;
+constexpr int F32_ROWS = 16 * F32_WARPS;   // query rows of a block: 16 a warp
+constexpr int F32_BOX = 32;        // f32 columns of a TMA box: a 128-byte row
 
-// Q^T D*(64+1), K^T D*(32+1), V 32*D, P^T 32*(64+1), bias 32 floats:
-// 108 KB at D = 192, two blocks an SM
-size_t simt_smem_bytes(int d) {
-    return ((size_t)d * QT_STRIDE + (size_t)d * KT_STRIDE + (size_t)BK * d
-            + (size_t)BK * PT_STRIDE + BK) * sizeof(float);
+// keys of a tile and stages of the ring by head-width template: two blocks
+// an SM at D <= 128 (81 KB and 97 KB), one above (145 KB with three stages
+// at D 192, 193 KB at D 256)
+__host__ __device__ constexpr int f32_keys(int dmax) { return dmax <= 64 ? 64 : 32; }
+__host__ __device__ constexpr int f32_stages(int dmax) { return dmax == 192 ? 3 : 2; }
+
+// Q, the ring, a full and an empty barrier a stage and Q's, one atom of alignment
+__host__ __device__ constexpr size_t f32_smem_bytes(int dmax) {
+    return ATOM_BYTES + (size_t)F32_ROWS * dmax * 4
+        + (size_t)f32_stages(dmax) * 2 * f32_keys(dmax) * dmax * 4
+        + 8 * (1 + 2 * f32_stages(dmax));
 }
 
+// Byte offset of element (r, c) of a tile stored as 32-column boxes of
+// `rows` rows under the 128-byte swizzle (TMA's layout): the 16-byte chunk
+// of a 128-byte row is XORed with the row's low three bits. Every fragment
+// load below then reads 32 distinct banks.
+__device__ __forceinline__ uint32_t sw_off(int r, int c, int rows) {
+    return (uint32_t)((c >> 5) * rows * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4)
+                      + ((c & 3) << 2));
+}
+
+__device__ __forceinline__ float lds(const unsigned char* tile, uint32_t off) {
+    return *reinterpret_cast<const float*>(tile + off);
+}
+
+// cvt.rna.tf32.f32 (to nearest, ties away from zero) on the bits of a finite
+// float: add half a unit of the 13 dropped bits to the magnitude, clear
+// them. Two integer operations, where the cvt instruction is markedly
+// slower on this card (each element is split where it is loaded, by every
+// warp that reads it).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small with both TF32; x - big is exact in float32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+    big = tf32_rna(x);
+    small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B at float32 accuracy from three TF32 products: the small terms
+// first, then big x big; small x small (2^-22 of the product) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                           const uint32_t (&bs)[2]) {
+    mma_tf32(d, ab, bs[0], bs[1]);
+    mma_tf32(d, as, bb[0], bb[1]);
+    mma_tf32(d, ab, bb[0], bb[1]);
+}
+
+// Layouts (PTX ISA, mma .m16n8k8 .tf32), warp lane = 4 g + t:
+//   A a[r]: row g + 8 (r & 1), k t + 4 (r >> 1)
+//   B b[r]: k t + 4 r, column g
+//   C d[e]: row g + 8 (e >> 1), column 2 t + (e & 1)
+// A's k runs over columns t, t + 4 and C's over 2 t, 2 t + 1, so P (in S's C
+// registers) cannot be A as it is. The sum over keys does not depend on
+// their order, so the P.V step of keys 8 kk.. reads A's k = t as key 2 t and
+// k = t + 4 as key 2 t + 1: a = (d[0], d[2], d[1], d[3]), and V's B fragment
+// reads the same keys, b[r] = V[8 kk + 2 t + r][column g].
 template <int DMAX, bool TRAIN>
-__global__ void __launch_bounds__(SIMT_THREADS)
-attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ bias,
-                     float* __restrict__ out, float* __restrict__ lse, int H,
-                     int Tq, int Tk, int D, int causal, float scale, uint32_t key,
-                     uint32_t thr, float keep_scale) {
-    constexpr int NC = DMAX / 16;   // output columns per thread
-    extern __shared__ float smem[];
-    float* qt = smem;                         // [D][QT_STRIDE]
-    float* kt = qt + D * QT_STRIDE;           // [D][KT_STRIDE]
-    float* vs = kt + D * KT_STRIDE;           // [BK][D]
-    float* pt = vs + BK * D;                  // [BK][PT_STRIDE]
-    float* bs = pt + BK * PT_STRIDE;          // [BK]
+__global__ void __launch_bounds__(F32_THREADS, 1)
+attn_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     float* __restrict__ lse, int H, int Tq, int Tk, int D, int n_qblocks,
+                     int causal, float scale, uint32_t key, uint32_t thr, float keep_scale) {
+    constexpr int TILE = f32_keys(DMAX), STAGES = f32_stages(DMAX);
+    constexpr int NS = TILE / 8;      // 8-key blocks of a tile
+    constexpr int ND = DMAX / 8;      // 8-column blocks of a row
+    constexpr uint32_t Q_BOX = F32_ROWS * 128, KV_BOX = TILE * 128;
+    constexpr uint32_t KV_BYTES = (DMAX / F32_BOX) * KV_BOX;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* q_smem =
+        smem_raw + ((ATOM_BYTES - (smem_u32(smem_raw) & (ATOM_BYTES - 1))) & (ATOM_BYTES - 1));
+    unsigned char* ring = q_smem + (DMAX / F32_BOX) * Q_BOX;   // stage s: K, then V
+    const uint32_t q_bar = smem_u32(ring + STAGES * 2 * KV_BYTES);
+    const uint32_t full_bar = q_bar + 8, empty_bar = full_bar + 8 * STAGES;
 
-    const int tid = threadIdx.x;
-    const int ty = tid / 16;                  // rows ty + 16 i
-    const int tx = tid % 16;                  // score cols tx + 16 j, out cols tx + 16 c
-    const int bh = blockIdx.x;
-    const int b = bh / H;
-    const int q0 = blockIdx.y * BQ;
-
-    const float* qb = q + ((long long)bh * Tq) * D;
-    const float* kb = k + ((long long)bh * Tk) * D;
-    const float* vb = v + ((long long)bh * Tk) * D;
-    const float* biasb = bias + (long long)b * Tk;
-
-    for (int idx = tid; idx < BQ * D; idx += SIMT_THREADS) {
-        int r = idx / D, d = idx % D;
-        qt[d * QT_STRIDE + r] = (q0 + r < Tq) ? qb[(long long)(q0 + r) * D + d] : 0.f;
-    }
-
-    const bool drop = TRAIN && thr != 0u;
-    const uint32_t hb = drop ? dropout_bh_hash(key, bh) : 0u;
-    float m[4], l[4], acc[4][NC];
-    uint32_t hr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        hr[i] = drop ? dropout_row_hash(hb, q0 + ty + 16 * i) : 0u;
-        m[i] = -INFINITY;
-        l[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-    }
-
-    // a causal block's keys past its last query row are all look-ahead
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    // the heaviest query blocks first: a causal block's keys grow with its rows
+    const int BH = gridDim.x / n_qblocks, bh = blockIdx.x % BH, b = bh / H;
+    const int q0 = (n_qblocks - 1 - blockIdx.x / BH) * F32_ROWS;
+    const int nb = (D + F32_BOX - 1) / F32_BOX;   // the boxes that hold columns < D
+    const int n_tiles = (Tk + TILE - 1) / TILE;
+    // A causal block's keys past its last query row are all look-ahead
     // masked: their logits are exactly NEG_INF, so their weights
-    // exp(NEG_INF - m) are exactly 0 and their tiles are skipped, unless a
+    // exp(NEG_INF - m) are exactly 0 and their tiles are not loaded, unless a
     // row's max lies within 128 of NEG_INF (every earlier key masked), where
-    // a fully masked row must still average v over all Tk keys
-    int k_stop = causal ? min(Tk, q0 + BQ) : Tk;
-    for (int k0 = 0; k0 < k_stop; k0 += BK) {
-        __syncthreads();   // previous tile's K/V/P reads are done
-        for (int idx = tid; idx < BK * D; idx += SIMT_THREADS) {
-            int kk = idx / D, d = idx % D;
-            bool in = k0 + kk < Tk;
-            long long gi = (long long)(k0 + kk) * D + d;
-            kt[d * KT_STRIDE + kk] = in ? kb[gi] : 0.f;
-            vs[kk * D + d] = in ? vb[gi] : 0.f;
-        }
-        if (tid < BK) bs[tid] = (k0 + tid < Tk) ? biasb[k0 + tid] : 0.f;
-        __syncthreads();
+    // a fully masked row must still average v over all Tk keys.
+    int n_load = causal ? min(n_tiles, (q0 + F32_ROWS + TILE - 1) / TILE) : n_tiles;
+    int issued = 0;   // thread 0's count of tiles issued
 
-        float s[4][2];
+    if (tid == 0) {
+        mbar_init(q_bar, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full_bar + 8 * s, 1);
+            mbar_init(empty_bar + 8 * s, F32_WARPS);   // one arrival a warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+        mbar_expect_tx(q_bar, nb * Q_BOX);
+        for (int j = 0; j < nb; ++j)
+            tma_load(smem_u32(q_smem) + j * Q_BOX, &qmap, j * F32_BOX, q0, bh, q_bar);
+        for (; issued < min(n_load, STAGES - 1); ++issued)
+            load_kv_tile<TILE, STAGES, KV_BYTES>(issued, nb, F32_BOX, bh, smem_u32(ring),
+                                                 full_bar, empty_bar, &kmap, &vmap);
+    }
+
+    const int qr = warp * 16 + g, row0 = q0 + qr;   // rows row0, row0 + 8; qr in the Q tile
+    const float* biasb = bias + (long long)b * Tk;
+    const bool drop = TRAIN && thr != 0u;
+    uint32_t hr[2] = {0u, 0u};
+    if (drop) {
+        uint32_t hb = dropout_bh_hash(key, bh);
+        hr[0] = dropout_row_hash(hb, row0);
+        hr[1] = dropout_row_hash(hb, row0 + 8);
+    }
+    float o[ND][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) { s[i][0] = 0.f; s[i][1] = 0.f; }
-        for (int d = 0; d < D; ++d) {
-            const float* qrow = qt + d * QT_STRIDE + ty;
-            const float* krow = kt + d * KT_STRIDE + tx;
-            float kv0 = krow[0], kv1 = krow[16];
+    for (int j = 0; j < ND; ++j)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                float qv = qrow[16 * i];
-                s[i][0] = fmaf(qv, kv0, s[i][0]);
-                s[i][1] = fmaf(qv, kv1, s[i][1]);
+        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(q_bar, 0);
+
+    for (int i = 0; i < n_load; ++i) {
+        if (tid == 0)
+            for (; issued < min(n_load, i + STAGES); ++issued)
+                load_kv_tile<TILE, STAGES, KV_BYTES>(issued, nb, F32_BOX, bh, smem_u32(ring),
+                                                     full_bar, empty_bar, &kmap, &vmap);
+        const int stage = i % STAGES, k0 = i * TILE;
+        // the bias of this thread's keys, read while the tile lands
+        float bk[NS][2];
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                int col = k0 + 8 * n + 2 * t + e;
+                bk[n][e] = col < Tk ? __ldg(biasb + col) : 0.f;
+            }
+        mbar_wait(full_bar + 8 * stage, (i / STAGES) & 1);
+        const unsigned char* k_smem = ring + stage * 2 * KV_BYTES;
+        const unsigned char* v_smem = k_smem + KV_BYTES;
+
+        // S = Q K^T over the 8-column steps that hold columns < D
+        float s[NS][4];
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+        // a loop at run time: unrolled, the compiler hoists every step's
+        // loads and runs out of registers
+#pragma unroll 2
+        for (int kd = 0; kd < D / 8; ++kd) {
+            const int c = 8 * kd + t;
+            uint32_t ab[4], as[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                split_tf32(lds(q_smem, sw_off(qr + 8 * (r & 1), c + 4 * (r >> 1), F32_ROWS)), ab[r],
+                           as[r]);
+#pragma unroll
+            for (int n = 0; n < NS; ++n) {
+                uint32_t bb[2], bs[2];
+#pragma unroll
+                for (int r = 0; r < 2; ++r)
+                    split_tf32(lds(k_smem, sw_off(8 * n + g, c + 4 * r, TILE)), bb[r], bs[r]);
+                mma_3xtf32(s[n], ab, as, bb, bs);
             }
         }
 
+        // scale, mask, online softmax; row half h: rows row0 (h 0), row0 + 8 (h 1)
+        float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            int row = q0 + ty + 16 * i;
-            float tmax = -INFINITY;
+        for (int n = 0; n < NS; ++n)
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                int kk = tx + 16 * j;
-                int col = k0 + kk;
-                float x = s[i][j] * scale + bs[kk];
+            for (int e = 0; e < 4; ++e) {
+                int col = k0 + 8 * n + 2 * t + (e & 1), row = row0 + (e >> 1) * 8;
+                float x = fmaf(s[n][e], scale, bk[n][e & 1]);
                 if (causal && col > row) x = NEG_INF;
                 if (col >= Tk) x = -INFINITY;
-                s[i][j] = x;
-                tmax = fmaxf(tmax, x);
+                s[n][e] = x;
+                tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
             }
-            // the 16 threads holding one row are lanes tx = 0..15 of a half-warp
+        float alpha[2];
 #pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-            float m_new = fmaxf(m[i], tmax);   // finite: every tile holds a key < Tk
-            float alpha = expf(m[i] - m_new);
-            float tsum = 0.f;
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                float p = expf(s[i][j] - m_new);
-                tsum += p;
-                if (drop)
-                    p = dropout_keep(hr[i], k0 + tx + 16 * j, thr) ? p * keep_scale : 0.f;
-                pt[(tx + 16 * j) * PT_STRIDE + ty + 16 * i] = p;
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
-            l[i] = l[i] * alpha + tsum;
-            m[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+        for (int h = 0; h < 2; ++h) {
+            // the 4 lanes of a quad (same g) hold one row between them
+            tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+            tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+            float m_new = fmaxf(m[h], tmax[h]);   // finite: every tile holds a key < Tk
+            alpha[h] = exp2f((m[h] - m_new) * LOG2E);
+            m[h] = m_new;
+            l[h] *= alpha[h];
         }
-        __syncthreads();   // P tile complete
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float p = exp2f((s[n][e] - m[e >> 1]) * LOG2E);
+                l[e >> 1] += p;   // this lane's part of the row sum
+                if (drop)
+                    p = dropout_keep(hr[e >> 1], k0 + 8 * n + 2 * t + (e & 1), thr)
+                        ? p * keep_scale : 0.f;
+                s[n][e] = p;
+            }
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+            o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
+            o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
+        }
 
-        for (int kk = 0; kk < BK; ++kk) {
-            const float* prow = pt + kk * PT_STRIDE + ty;
-            const float* vrow = vs + kk * D + tx;
-            float p[4];
+        // O += P V, keys 8 kk.. in the order 2 t, 2 t + 1 (see the layouts).
+        // Column blocks go in groups of 8 with no branch inside a group, so
+        // that its accumulators' products interleave (a branch between
+        // blocks would leave each block's 3 dependent products exposed).
 #pragma unroll
-            for (int i = 0; i < 4; ++i) p[i] = prow[16 * i];
+        for (int kk = 0; kk < NS; ++kk) {
+            uint32_t ab[4], as[4];
+            split_tf32(s[kk][0], ab[0], as[0]);
+            split_tf32(s[kk][2], ab[1], as[1]);
+            split_tf32(s[kk][1], ab[2], as[2]);
+            split_tf32(s[kk][3], ab[3], as[3]);
 #pragma unroll
-            for (int c = 0; c < NC; ++c) {
-                if (tx + 16 * c < D) {
-                    float vv = vrow[16 * c];
+            for (int j0 = 0; j0 < ND; j0 += 8) {
+                if (8 * j0 >= D) break;
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+                for (int j = j0; j < j0 + 8; ++j) {
+                    uint32_t bb[2], bs[2];
+#pragma unroll
+                    for (int r = 0; r < 2; ++r)
+                        split_tf32(lds(v_smem, sw_off(8 * kk + 2 * t + r, 8 * j + g, TILE)),
+                                   bb[r], bs[r]);
+                    mma_3xtf32(o[j], ab, as, bb, bs);
                 }
             }
         }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar + 8 * stage);   // this warp is done with it
 
-        if (k0 + BK >= k_stop && k_stop < Tk) {
-            bool low = false;
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                low |= q0 + ty + 16 * i < Tq && m[i] < NEG_INF + 128.f;
-            if (__syncthreads_or(low)) k_stop = Tk;
+        if (i == n_load - 1 && n_load < n_tiles) {
+            bool low = (row0 < Tq && m[0] < NEG_INF + 128.f)
+                       || (row0 + 8 < Tq && m[1] < NEG_INF + 128.f);
+            if (__syncthreads_or(low)) n_load = n_tiles;
         }
     }
 
-    float* ob = out + ((long long)bh * Tq) * D;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        int row = q0 + ty + 16 * i;
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+    float* ob = out + (long long)bh * Tq * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        int row = row0 + h * 8;
         if (row >= Tq) continue;
-        if (TRAIN && tx == 0)
+        if (TRAIN && t == 0)
             reinterpret_cast<float2*>(lse)[(long long)bh * Tq + row] =
-                make_float2(m[i], logf(l[i]));
-        float inv = 1.f / l[i];
+                make_float2(m[h], logf(l[h]));
+        float inv = 1.f / l[h];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            int col = tx + 16 * c;
-            if (col < D) ob[(long long)row * D + col] = acc[i][c] * inv;
+        for (int j = 0; j < ND; ++j) {
+            int col = 8 * j + 2 * t;
+            if (col < D)
+                *reinterpret_cast<float2*>(ob + (long long)row * D + col) =
+                    make_float2(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
         }
     }
 }
@@ -649,18 +780,23 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
-// A bf16 (B*H, T, D) tensor as a 3-D map (D, T, B*H) of boxes of 64 columns
-// by `rows` rows under the 128-byte swizzle, zeros outside the tensor.
-bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int T, int D, int rows) {
+// A (B*H, T, D) tensor of bf16 (elem_bytes 2) or float32 (4) as a 3-D map
+// (D, T, B*H) of boxes of one 128-byte row (64 or 32 columns) by `rows`
+// rows under the 128-byte swizzle, zeros outside the tensor.
+bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int T, int D, int rows,
+                int elem_bytes) {
     EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return false;
     const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
-    const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
-    const cuuint32_t box[3] = {BOX, (cuuint32_t)rows, 1};
+    const cuuint64_t strides[2] = {(cuuint64_t)D * elem_bytes,
+                                   (cuuint64_t)T * D * elem_bytes};
+    const cuuint32_t box[3] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)rows, 1};
     const cuuint32_t unit[3] = {1, 1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                  strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+    return encode(map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  3, const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -676,71 +812,81 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int T, int D, int row
     (D <= 64 ? KERNEL<64, TRAIN> : D <= 128 ? KERNEL<128, TRAIN>               \
      : D <= 192 ? KERNEL<192, TRAIN> : KERNEL<256, TRAIN>)
 
-template <bool TRAIN>
-int launch_bf16(ATTN_PARAMS) {
-    const int n_qblocks = (Tq + Q_ROWS - 1) / Q_ROWS;
-    if ((long long)B * H * n_qblocks > INT_MAX) return -1;
-    CUtensorMap qmap, kmap, vmap;
-    if (!tensor_map(&qmap, q, B * H, Tq, D, Q_ROWS) || !tensor_map(&kmap, k, B * H, Tk, D, KEYS)
-        || !tensor_map(&vmap, v, B * H, Tk, D, KEYS))
-        return -2;
-    auto kernel = PICK_D(attn_fwd_wgmma_kernel, TRAIN);
-    const int dmax = D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256;
-    const size_t bytes = wgmma_smem_bytes(dmax);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<B * H * n_qblocks, WG_THREADS, bytes, stream>>>(
-        qmap, kmap, vmap, bias, static_cast<__nv_bfloat16*>(out), lse, H, Tq, Tk, D,
-        n_qblocks, causal, scale, key, thr, keep_scale);
-    return (int)cudaGetLastError();
+int dmax_of(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256; }
+
+// One dtype's design: block size, query rows and key rows of a block's
+// tiles, shared memory, ring stages and element bytes.
+struct Design {
+    int threads, q_rows, keys, stages, elem_bytes;
+    size_t smem;
+};
+
+Design design(int dtype, int D) {
+    const int dmax = dmax_of(D);
+    if (dtype == 0)
+        return {F32_THREADS, F32_ROWS, f32_keys(dmax), f32_stages(dmax), 4,
+                f32_smem_bytes(dmax)};
+    return {WG_THREADS, Q_ROWS, KEYS, fwd_stages(dmax), 2, wgmma_smem_bytes(dmax)};
 }
 
 template <bool TRAIN>
-int launch_f32(ATTN_PARAMS) {
-    if ((Tq + BQ - 1) / BQ > 65535) return -1;
-    auto kernel = PICK_D(attn_fwd_simt_kernel, TRAIN);
-    const size_t bytes = simt_smem_bytes(D);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-    kernel<<<grid, SIMT_THREADS, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), bias, static_cast<float*>(out), lse, H, Tq, Tk, D,
-        causal, scale, key, thr, keep_scale);
-    return (int)cudaGetLastError();
+int launch(int dtype, ATTN_PARAMS) {
+    const Design ds = design(dtype, D);
+    const int n_qblocks = (Tq + ds.q_rows - 1) / ds.q_rows;
+    if ((long long)B * H * n_qblocks > INT_MAX) return -1;
+    CUtensorMap qmap, kmap, vmap;
+    if (!tensor_map(&qmap, q, B * H, Tq, D, ds.q_rows, ds.elem_bytes)
+        || !tensor_map(&kmap, k, B * H, Tk, D, ds.keys, ds.elem_bytes)
+        || !tensor_map(&vmap, v, B * H, Tk, D, ds.keys, ds.elem_bytes))
+        return -2;
+    auto start = [&](auto kernel, auto* typed_out) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ds.smem);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<B * H * n_qblocks, ds.threads, ds.smem, stream>>>(
+            qmap, kmap, vmap, bias, typed_out, lse, H, Tq, Tk, D, n_qblocks, causal, scale,
+            key, thr, keep_scale);
+        return (int)cudaGetLastError();
+    };
+    return dtype == 0 ? start(PICK_D(attn_fwd_tf32_kernel, TRAIN), static_cast<float*>(out))
+                      : start(PICK_D(attn_fwd_wgmma_kernel, TRAIN),
+                              static_cast<__nv_bfloat16*>(out));
 }
 
 bool bad_width(int D) { return D < 8 || D > 256 || D % 8 != 0; }
 
 template <bool TRAIN>
 int dispatch(int dtype, ATTN_PARAMS) {
-    if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || bad_width(D)) return -1;
-    if (dtype == 0) return launch_f32<TRAIN>(ATTN_ARGS);
-    if (dtype == 1) return launch_bf16<TRAIN>(ATTN_ARGS);
-    return -1;
+    if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || bad_width(D) || (dtype != 0 && dtype != 1))
+        return -1;
+    return launch<TRAIN>(dtype, ATTN_ARGS);
 }
 
-// What the bf16 kernel uses, as the card reports it: out = {registers a
-// thread, local (spill) bytes a thread, static and dynamic shared memory a
-// block, blocks an SM, threads a block, stages of the K/V ring}.
+// What a kernel uses, as the card reports it: out = {registers a thread,
+// local (spill) bytes a thread, static and dynamic shared memory a block,
+// blocks an SM, threads a block, stages of the K/V ring, keys of a tile}.
 template <typename Kernel>
-int wgmma_resources(Kernel kernel, int dmax, int* out) {
-    const size_t bytes = wgmma_smem_bytes(dmax);
+int kernel_resources(Kernel kernel, const Design& ds, int* out) {
     int blocks = 0;
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ds.smem);
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WG_THREADS,
-                                                            bytes);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, ds.threads,
+                                                            ds.smem);
     if (err != cudaSuccess) return (int)err;
-    const int values[7] = {attr.numRegs, (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
-                           (int)bytes, blocks, WG_THREADS, fwd_stages(dmax)};
-    for (int i = 0; i < 7; ++i) out[i] = values[i];
+    const int values[8] = {attr.numRegs, (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
+                           (int)ds.smem, blocks, ds.threads, ds.stages, ds.keys};
+    for (int i = 0; i < 8; ++i) out[i] = values[i];
     return 0;
+}
+
+template <bool TRAIN>
+int resources(int dtype, int D, int* out) {
+    const Design ds = design(dtype, D);
+    return dtype == 0 ? kernel_resources(PICK_D(attn_fwd_tf32_kernel, TRAIN), ds, out)
+                      : kernel_resources(PICK_D(attn_fwd_wgmma_kernel, TRAIN), ds, out);
 }
 
 #undef ATTN_ARGS
@@ -752,8 +898,8 @@ int wgmma_resources(Kernel kernel, int dmax, int* out) {
 // Tensors are contiguous and 16-byte aligned: q, out (B, H, Tq, D);
 // k, v (B, H, Tk, D); bias (B, Tk). Returns 0, or the cudaError_t of a
 // refused launch; -1 for arguments the kernel does not take (the Python
-// wrapper checks them first), -2 when the bf16 kernel's tensor maps cannot
-// be made (cuTensorMapEncodeTiled not found, or a map it refuses).
+// wrapper checks them first), -2 when the tensor maps cannot be made
+// (cuTensorMapEncodeTiled not found, or a map it refuses).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const float* bias, void* out, int B, int H,
                                    int Tq, int Tk, int D, int causal, int dtype,
@@ -778,12 +924,10 @@ extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void*
                           static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 kernel's resources at head width D (see wgmma_resources), K1's
-// instance for train = 0, K2's for train = 1: 0, a cudaError_t, or -1 for a
-// width the kernel does not take.
-extern "C" int flash_attention_fwd_resources(int D, int train, int* out) {
-    if (bad_width(D)) return -1;
-    const int dmax = D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256;
-    return train ? wgmma_resources(PICK_D(attn_fwd_wgmma_kernel, true), dmax, out)
-                 : wgmma_resources(PICK_D(attn_fwd_wgmma_kernel, false), dmax, out);
+// The resources (see kernel_resources) of the kernel for dtype (0 float32,
+// 1 bfloat16) at head width D, K1's instance for train = 0, K2's for
+// train = 1: 0, a cudaError_t, or -1 for a width or dtype it does not take.
+extern "C" int flash_attention_fwd_resources(int D, int train, int dtype, int* out) {
+    if (bad_width(D) || (dtype != 0 && dtype != 1)) return -1;
+    return train ? resources<true>(dtype, D, out) : resources<false>(dtype, D, out);
 }

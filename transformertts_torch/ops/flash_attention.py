@@ -361,12 +361,15 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
 
-def fwd_resources(d: int, train: bool) -> dict:
-    """What the bfloat16 forward at head width ``d`` uses on the card, K1's
-    instance or (``train``) K2's: ``build.RESOURCES`` and its ring's stages."""
+def fwd_resources(d: int, train: bool, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What the forward at head width ``d`` uses on the card, K1's instance
+    or (``train``) K2's, for ``dtype`` (the bfloat16 ``wgmma`` kernel or the
+    float32 3×TF32 one): ``build.RESOURCES``, its ring's stages and the keys
+    of a tile."""
     from transformertts_torch.ops import build
     return build.resources('flash_attention_fwd', 'flash_attention_fwd_resources',
-                           (d, int(train)), build.RESOURCES + ('stages',))
+                           (d, int(train), _DTYPES[dtype]),
+                           build.RESOURCES + ('stages', 'key_tile'))
 
 
 def dq_resources(d: int) -> dict:

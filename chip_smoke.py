@@ -67,7 +67,16 @@ prints no result):
    3xTF32's three TF32 products on the tensor cores), K1 float32 timed at
    one decode step, and K2 float32 checked and timed there at dropout 0.1
    beside the library call with the same dropout;
-10. Aligner slice: config/training_config.yaml's published ``aligner_settings``
+10. Aligner training kernels: K2, K3 and K4 in float32 against their plain
+   versions at the Aligner's training shapes (``ALIGNER_BWD_CASES``: the
+   decoder's causal self-attention at D 64 and at D 256, the
+   cross-attention, the encoder's self-attention; B16 x 896 frames x 160
+   tokens) at dropout 0 and 0.1, what K3's and K4's float32 kernels use on
+   the card (it fails if D 64 or 256 spills or fits no block), then K3 and
+   K4 timed at the decoder's self-attention with dropout 0.1 beside the
+   plain backward, ``scaled_dot_product_attention``'s float32 backward and
+   two bounds (on the CUDA cores, and as 3xTF32);
+11. Aligner slice: config/training_config.yaml's published ``aligner_settings``
    (d 256, encoder heads [4, 4, 4, 4], decoder heads [4, 4, 4, 4, 1], float32)
    with weights drawn from a seed, saved as a model dir and loaded back,
    written as a JAX-layout checkpoint at a step where the reduction schedule
@@ -80,7 +89,20 @@ prints no result):
    launches a step; and the share of one bfloat16 batch's durations equal to
    the float32 ones (printed, not gated: random weights give near-uniform
    maps);
-11. the last three lines: the kernels' JSON record (each kernel's time, its
+12. Aligner training: the published ``aligner_settings`` (f32, dropout 0.1)
+   from the seeded weights of ``train_aligner``, on the featurization
+   slice's data dir through ``transformertts_torch.train_aligner`` (its
+   ``main``): steps 0-1 at r = 10 with both diagonals forced, steps 2-5 at
+   r = 1 with neither (step 3 a plotting step), a checkpoint at 3 and 6,
+   validation and predictions at 6, then resumed from 6 to 8; it fails
+   unless every loss is finite and K2/K3/K4 launch 13 times a micro-batch on
+   a step that neither forces nor plots and 0 times on one that does. Then
+   ms a step (median of steps 4-13 of 30 on one batch) at the config's three
+   buckets at r = 1 and the largest at r = 10, 30 steps on one batch whose
+   loss must fall, and the synthetic language of tests/convergence_check.py
+   trained 2,500 steps at d 48 on the kernels, whose extracted durations
+   must come within 1.5 frames of the known ones;
+13. the last three lines: the kernels' JSON record (each kernel's time, its
    plain version's, one PyTorch library call's that computes the same
    function, and its bound: the larger of the FLOPs the function needs
    (for K5 an FFT's) over the card's peak rate for their type and its
@@ -150,6 +172,17 @@ ALIGNER_CASES = [((6, 4, 777, 777, 64), True, None), (ALIGNER_SELF_SHAPE, True, 
 ALIGN_MAP_TOL = dict(atol=1e-4, rtol=0)
 ALIGNER_R1_STEP = 130000   # the published reduction schedule's r = 1 from here
 PREDICT_MAX_LENGTH = 400
+# the published Aligner's training attentions at the config's largest bucket,
+# B16 x 896 frames x 160 tokens, (B, H, Tq, Tk, D) and causal: the decoder's
+# self-attention at D 64 and its last block's at D 256, the cross-attention,
+# the encoder's self-attention
+ALIGNER_BWD_SHAPE = (16, 4, 896, 896, 64)
+ALIGNER_BWD_CASES = [(ALIGNER_BWD_SHAPE, True), ((16, 1, 896, 896, 256), True),
+                     ((16, 4, 896, 160, 64), False), ((16, 4, 160, 160, 64), False)]
+# (B, frames, tokens, r): scripts/measure_train_step.py's three buckets at r = 1,
+# and the largest at r = 10
+ALIGNER_TRAIN_BUCKETS = [(64, 256, 48, 1), (32, 512, 96, 1), (16, 896, 160, 1),
+                         (16, 896, 160, 10)]
 
 PUBLISHED = dict(
     encoder_model_dimension=384, decoder_model_dimension=384, dropout_rate=0.1,
@@ -174,9 +207,9 @@ def log(*args):
 
 
 def write_session(work: Path, tts_overrides: dict = None,
-                  data_overrides: dict = None) -> Path:
-    """A session YAML: config/training_config.yaml (the published TTS
-    settings) with its paths under ``work`` and the given overrides."""
+                  data_overrides: dict = None, aligner_overrides: dict = None) -> Path:
+    """A session YAML: config/training_config.yaml (the published TTS and
+    Aligner settings) with its paths under ``work`` and the given overrides."""
     with open(ROOT / 'config' / 'training_config.yaml') as f:
         cfg = yaml.safe_load(f)
     cfg['paths'] = {'wav_directory': str(work / 'wavs'),
@@ -185,6 +218,7 @@ def write_session(work: Path, tts_overrides: dict = None,
                     'train_data_directory': str(work / 'ttsdata')}
     cfg['training_data_settings'].update(data_overrides or {})
     cfg['tts_settings'].update(tts_overrides or {})
+    cfg['aligner_settings'].update(aligner_overrides or {})
     work.mkdir(parents=True, exist_ok=True)
     path = work / 'session.yaml'
     with open(path, 'w') as f:
@@ -475,7 +509,8 @@ def trainable_kernel_phase() -> dict:
             f'{t["K2"] + t["K3"] + t["K4"]:.4f} ms vs {t["plain_fwd"] + t["plain_bwd"]:.4f} ms '
             f'(plain at dropout 0: {plain0:.4f} ms); row_dot {t["row_dot"]:.4f} ms once a '
             f'backward')
-        t.update(_library_training_attention(q, k, v, bias, dout))
+        t.update(_library_training_attention(q, k, v, bias[:, None, None, :].to(q.dtype),
+                                             dout))
         b, h, tq, tk, d = shape
         # bf16 rows of q or o, dO or dQ (each b·h·tq·d) and of k, v, dK or dV
         # (each b·h·tk·d); float32 bias, (m, log l) pairs and D rows
@@ -497,13 +532,12 @@ def trainable_kernel_phase() -> dict:
     return {'errors': errors, 'rel_l2': rel_l2, 'resources': resources, 'times': record}
 
 
-def _library_training_attention(q, k, v, bias, dout) -> dict:
-    """PyTorch's fused attention at dropout 0.1 with the additive mask,
+def _library_training_attention(q, k, v, mask, dout) -> dict:
+    """PyTorch's fused attention at dropout 0.1 with the additive ``mask``,
     forward alone and forward + backward through autograd: the yardstick of
     K2 and of K2 + K3 + K4."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    mask = bias[:, None, None, :].to(q.dtype)
     backend = _sdpa_backend(qg, kg, vg, mask, 0.1)
 
     def fwd_bwd():
@@ -1182,6 +1216,311 @@ def aligner_phase(cfg) -> dict:
             'bf16_same_share': share16, 'map_err': map_err, **stats}
 
 
+def aligner_backward_phase() -> dict:
+    """K2, K3 and K4 in float32 against their plain versions at the Aligner's
+    training shapes (``ALIGNER_BWD_CASES``) at dropout 0 and 0.1, what K3's
+    and K4's float32 kernels use on the card (it fails if D 64 or 256
+    spills or fits no block), then K3 and K4 timed at the decoder's causal
+    self-attention with dropout 0.1 beside the plain backward,
+    ``scaled_dot_product_attention``'s float32 backward and two bounds."""
+    fa, _ = _trainable_ops()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
+    errors = {'K2': 0.0, 'K3': 0.0, 'K4': 0.0}
+    for shape, causal in ALIGNER_BWD_CASES:
+        for rate in (0.0, 0.1):
+            q, k, v, bias = _qkv(shape, torch.float32, gen)
+            dout = torch.randn(q.shape, device='cuda', generator=gen)
+            args = (causal, rate, 1234, 5678)
+            out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
+            dq = fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, *args)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = fa.attention_fwd_lse_plain(q, k, v, bias, *args)
+            ref = fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, *args)
+            for name, mine, want, tol in (('K2', out, ref_out, F32_TOL),
+                                          ('K2', lse, ref_lse, F32_TOL),
+                                          ('K3', dq, ref[0], F32_GRAD_TOL),
+                                          ('K4', dk, ref[1], F32_GRAD_TOL),
+                                          ('K4', dv, ref[2], F32_GRAD_TOL)):
+                if not torch.isfinite(mine).all() or not want.abs().max() > 0:
+                    raise AssertionError(f'{name} not finite, or its plain version all zero, '
+                                         f'at {shape} dropout {rate}')
+                torch.testing.assert_close(mine, want, **tol)
+                errors[name] = max(errors[name], (mine - want).abs().max().item())
+            log(f'f32 Aligner training {shape} causal={causal} dropout={rate}: max |kernel - '
+                f'plain| out {(out - ref_out).abs().max().item():.3g} dq '
+                f'{(dq - ref[0]).abs().max().item():.3g} dk {(dk - ref[1]).abs().max().item():.3g} '
+                f'dv {(dv - ref[2]).abs().max().item():.3g}')
+            del q, k, v, dout, out, lse, dq, dk, dv, ref_out, ref_lse, ref
+    resources = {
+        'K3': _resources('K3', lambda d: fa.dq_resources(d, torch.float32), 'query_rows',
+                         'f32', gated=(64, 256)),
+        'K4': _resources('K4', lambda d: fa.dkv_resources(d, torch.float32), 'query_tile',
+                         'f32', gated=(64, 256))}
+    resources['K3_d256'] = fa.dq_resources(256, torch.float32)
+    resources['K4_d256'] = fa.dkv_resources(256, torch.float32)
+
+    b, h, t, _, d = ALIGNER_BWD_SHAPE
+    q, k, v, bias = _qkv(ALIGNER_BWD_SHAPE, torch.float32, gen)
+    dout = torch.randn(q.shape, device='cuda', generator=gen)
+    args = (True, 0.1, 1234, 5678)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
+    dsum = fa.row_dot(dout, out)
+    k3 = _time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, *args,
+                                                    dsum=dsum))
+    k4 = _time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args,
+                                                     dsum=dsum))
+    plain = _time_ms(lambda: fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, *args),
+                     iters=5)
+    # the library's additive (B, 1, T, T) mask: key padding plus the look-ahead
+    look_ahead = torch.triu(torch.full((t, t), -1e9, device='cuda'), diagonal=1)
+    library = _library_training_attention(q, k, v, bias[:, None, None, :] + look_ahead, dout)
+    # the products the causal mask leaves: K3 three (S, dP, dS·K), K4 four
+    # (S, dP, dV, dK), each 2·kept·D; float32 inputs q, k, v, dO, (m, log l),
+    # D and bias read once, dQ or dK and dV written once
+    kept = b * h * t * (t + 1) // 2
+    row = 4 * b * h * t * d
+    small = 8 * b * h * t + 4 * b * h * t + 4 * b * t
+    bounds = {}
+    for name, products, outputs in (('K3', 3, 1), ('K4', 4, 2)):
+        flops, nbytes = 2 * products * kept * d, (4 + outputs) * row + small
+        bounds[name] = {'f32': bound(flops, nbytes, 'f32'),
+                        'tf32x3': bound(3 * flops, nbytes, 'tf32'),
+                        'gflop': flops / 1e9, 'mbytes': nbytes / 1e6}
+        log(f'f32 {name} {ALIGNER_BWD_SHAPE} causal, dropout 0.1: kernel '
+            f'{k3 if name == "K3" else k4:.4f} ms; bound {bounds[name]["f32"]["bound_ms"]:.4f} '
+            f'ms on the CUDA cores ({bounds[name]["f32"]["bound_by"]}, {flops / 1e9:.2f} GFLOP '
+            f'that the causal mask leaves; its {nbytes / 1e6:.1f} MB take '
+            f'{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), 3xTF32 bound '
+            f'{bounds[name]["tf32x3"]["bound_ms"]:.4f} ms')
+    log(f'f32 backward {ALIGNER_BWD_SHAPE} causal, dropout 0.1: K3 {k3:.4f} + K4 {k4:.4f} = '
+        f'{k3 + k4:.4f} ms; plain backward {plain:.4f} ms; scaled_dot_product_attention '
+        f'({library["library_backend"]}, f32, TF32 off) backward {library["library_bwd"]:.4f} '
+        f'ms (forward {library["library_fwd"]:.4f})')
+    return {'errors': errors, 'resources': resources, 'shape': list(ALIGNER_BWD_SHAPE),
+            'K3': k3, 'K4': k4, 'plain_bwd': plain, 'bounds': bounds, **library}
+
+
+def _aligner_session(cfg, work: Path, overrides: dict) -> Path:
+    """The featurization slice's session (its data dir) with the logs and
+    weights under ``work`` and ``overrides`` in ``aligner_settings``."""
+    session = yaml.safe_load(Path(cfg).read_text())
+    session['paths']['log_directory'] = str(work / 'logs')
+    session['aligner_settings'].update(overrides)
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / 'session.yaml'
+    path.write_text(yaml.safe_dump(session))
+    return path
+
+
+def aligner_training_phase(cfg) -> dict:
+    """Stage 2's training half on the card: the published Aligner (f32,
+    dropout 0.1) through ``train_aligner.main`` on the featurization slice's
+    data dir, at r = 10 with both diagonals forced, then at r = 1 with
+    neither, covering a plotting step, a checkpoint, validation, predictions
+    and a resume; timed steps at the config's three buckets; the synthetic
+    language's convergence on the kernels."""
+    from transformertts_torch import train_aligner
+    from transformertts_torch.profile_train import aligner_batch
+    from transformertts_torch.training import checkpointing
+    from transformertts_torch.training.aligner_trainer import AlignerTrainer
+    from transformertts_torch.utils.config import TrainingConfigManager
+    _, ops = _trainable_ops()
+    work = WORK / 'align_train'
+    if work.exists():
+        shutil.rmtree(work)
+    schedule = dict(reduction_factor_schedule=[[0, 10], [2, 1]],
+                    force_encoder_diagonal_steps=2, force_decoder_diagonal_steps=2,
+                    train_images_plotting_frequency=4, checkpoint_frequency=3,
+                    validation_frequency=6, prediction_frequency=6, prediction_start_step=6,
+                    prediction_max_length=40,
+                    test_sentences_file=str(ROOT / 'config' / 'aligner_test_sentences.txt'))
+    steps = []
+    train_step = AlignerTrainer.train_step
+
+    def counted(self, batch, r=None, force_encoder_diagonal=False,
+                force_decoder_diagonal=False, return_attention=False):
+        """The trainer's step, recording its flags, launches and loss."""
+        before, step = _launch_counts(ops), self.step
+        aux = train_step(self, batch, r, force_encoder_diagonal, force_decoder_diagonal,
+                         return_attention)
+        steps.append(dict(step=step, r=r, forced=force_encoder_diagonal and
+                          force_decoder_diagonal, plot=return_attention,
+                          micro=self.grad_accumulation, loss=aux['loss'].item(),
+                          launches=[a - b for a, b in zip(_launch_counts(ops), before)]))
+        return aux
+
+    AlignerTrainer.train_step = counted
+    try:
+        runs = []
+        for max_steps in (6, 8):
+            session = _aligner_session(cfg, work, {**schedule, 'max_steps': max_steps})
+            for f in ops:
+                f.launches = 0
+            del steps[:]
+            t0 = time.perf_counter()
+            validation = train_aligner.main(['--config', str(session), '--yes',
+                                             '--device', DEVICE])
+            torch.cuda.synchronize()
+            runs.append(dict(steps=list(steps), launches=_launch_counts(ops),
+                             validation=validation, seconds=time.perf_counter() - t0))
+    finally:
+        AlignerTrainer.train_step = train_step
+    cm = TrainingConfigManager(session, aligner=True)
+    first, resumed = runs
+    for run in runs:
+        for st in run['steps']:
+            expect = 0 if st['forced'] or st['plot'] else 13 * st['micro']
+            if st['launches'] != [expect] * 3 or not np.isfinite(st['loss']):
+                raise AssertionError(f'Aligner step {st}: K2/K3/K4 launches not {expect} '
+                                     f'each, or the loss not finite')
+            if st['r'] != (10 if st['step'] < 2 else 1) or st['forced'] != (st['step'] < 2):
+                raise AssertionError(f'Aligner step {st}: r or forcing off the schedule')
+    if [st['step'] for st in first['steps']] != list(range(6)) \
+            or [st['step'] for st in resumed['steps']] != [6, 7]:
+        raise AssertionError(f'train_aligner ran steps {[st["step"] for st in first["steps"]]} '
+                             f'then {[st["step"] for st in resumed["steps"]]}, not 0-5 and 6-7')
+    if list(first['validation']) != [6] or not np.isfinite(first['validation'][6]):
+        raise AssertionError(f'validation at step 6 gave no finite loss: '
+                             f'{first["validation"]}')
+    ckpts = [s for s, _ in checkpointing.list_checkpoints(cm.weights_dir)]
+    if ckpts != [6, 8]:
+        raise AssertionError(f'checkpoints {ckpts}, not [6, 8]')
+    for name, run in (('steps 0-5', first), ('resumed, steps 6-7', resumed)):
+        log(f'train_aligner {name}: {run["seconds"]:.1f} s, K2/K3/K4 launches '
+            f'{run["launches"]}; a step: ' + ', '.join(
+                f'{st["step"]} r{st["r"]}{" forced" if st["forced"] else ""}'
+                f'{" plot" if st["plot"] else ""} {st["launches"][0]} launches loss '
+                f'{st["loss"]:.4f}' for st in run['steps']))
+    log(f'validation loss at step 6: {first["validation"][6]:.4f}; checkpoints {ckpts}')
+
+    # timed steps at the config's buckets (r = 1) and the largest at r = 10
+    times = {}
+    for i, (b, frames, n_tok, r) in enumerate(ALIGNER_TRAIN_BUCKETS):
+        model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(SEED)).to(DEVICE)
+        trainer = AlignerTrainer(model, cm.config['learning_rate_schedule'],
+                                 stop_scaling=cm.stop_scaling)
+        batch = aligner_batch(model, b, n_tok, frames, SEED)
+        losses, step_s = [], []
+        for _ in range(30):
+            counts = _launch_counts(ops)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = trainer.train_step(batch, r=r)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(aux['loss'].item())
+            per_step = [a - c for a, c in zip(_launch_counts(ops), counts)]
+            if per_step != [13, 13, 13]:
+                raise AssertionError(f'an Aligner step launched K2/K3/K4 {per_step} times')
+        ms = statistics.median(step_s[3:13]) * 1e3
+        head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        if not np.isfinite(losses).all():
+            raise AssertionError(f'Aligner B{b} x {frames}f r {r}: loss {losses}')
+        log(f'Aligner train step B{b} x {frames} frames x {n_tok} tokens, r {r}, f32, dropout '
+            f'0.1: median {ms:.2f} ms (steps 4-13: {[round(x * 1e3, 2) for x in step_s[3:13]]}), '
+            f'{b * frames / (ms / 1e3):.1f} mel frames/s; K2/K3/K4 13 a step; loss of steps '
+            f'1-5 {head:.4f}, of steps 26-30 {tail:.4f}')
+        times[f'B{b}x{frames}r{r}'] = ms
+        # the overfit gate: the middle bucket
+        if i == 1 and not tail < head:
+            raise AssertionError(f'30 Aligner steps on one batch: loss {losses}')
+        del model, trainer
+
+    conv = synthetic_language_convergence(DEVICE)
+    log(f'synthetic language, d 48, 2,500 steps on the kernels: extracted-duration MAE '
+        f'{conv["duration_mae"]:.3f} frames (mean true duration {conv["mean_duration"]:.2f}; '
+        f'bar 1.5), last loss {conv["final_loss"]:.4f}, {conv["seconds"]:.1f} s')
+    if not conv['duration_mae'] < 1.5:
+        raise AssertionError(f'the port\'s Aligner did not learn the synthetic language: {conv}')
+    return {'launches': first['launches'], 'ms_per_step': times, 'convergence': conv}
+
+
+LANG_MEL, LANG_VOCAB = 20, 20   # the synthetic language's mel channels and tokens
+
+
+def make_language(rng, n_samples=64, n_tok=12, mel_channels=LANG_MEL):
+    """A token → mel language whose durations are known (the numpy copy of
+    tests/convergence_check.py's): each token id has a fixed mel signature
+    and a fixed duration of 2-5 frames. Returns [(tokens int32, durations
+    float32, mel (frames, mel_channels) float32)]."""
+    signatures = rng.standard_normal((LANG_VOCAB + 1, mel_channels)) * 0.8
+    durations_of = rng.integers(2, 6, LANG_VOCAB + 1)
+    samples = []
+    for _ in range(n_samples):
+        toks = rng.integers(1, LANG_VOCAB + 1, n_tok)
+        durs = np.asarray([durations_of[t] for t in toks], np.float32)
+        frames = []
+        for t, d in zip(toks, durs):
+            block = np.tile(signatures[t], (int(d), 1))
+            block += 0.01 * rng.standard_normal(block.shape)
+            frames.append(block)
+        mel = np.concatenate(frames, 0).astype(np.float32)
+        samples.append((toks.astype(np.int32), durs, mel))
+    return samples
+
+
+def synthetic_language_convergence(device, steps: int = 2500) -> dict:
+    """tests/convergence_check.py's Aligner half on the port: an Aligner at d
+    48 (heads [2] / [2, 2], f32, dropout 0.1, prenet dropout 0.3, r 1)
+    trained ``steps`` steps of B16 on the synthetic language at 3e-4, the
+    encoder's diagonal forced for 100 steps and the decoder's for 800, then
+    durations extracted from the last cross-attention of 8 samples (weighted
+    heads) against their known durations. Returns the mean absolute error in
+    frames, the last loss and the training wall time."""
+    from transformertts_torch.models.aligner import Aligner
+    from transformertts_torch.ops.duration_extraction import get_durations_from_alignment
+    from transformertts_torch.training.aligner_trainer import AlignerTrainer
+    rng = np.random.default_rng(1)
+    samples = make_language(rng, n_samples=48)
+    n_tok = 12 + 2   # start and end tokens
+    t_max = max(s[2].shape[0] for s in samples) + 2
+    t_pad = -(-t_max // 16) * 16
+    model = Aligner(
+        compute_dtype='float32', encoder_model_dimension=48, decoder_model_dimension=48,
+        encoder_num_heads=[2], decoder_num_heads=[2, 2], encoder_max_position_encoding=128,
+        decoder_max_position_encoding=256, encoder_prenet_dimension=48,
+        decoder_prenet_dimension=48, dropout_rate=0.1, mel_start_value=0.5,
+        mel_end_value=-0.5, mel_channels=LANG_MEL, phoneme_language='en-us',
+        with_stress=False, decoder_prenet_dropout=0.3, model_breathing=False,
+        encoder_feed_forward_dimension=96, decoder_feed_forward_dimension=96, max_r=1)
+    model.init_params(torch.Generator().manual_seed(1)).to(device)
+    trainer = AlignerTrainer(model, [(0, 3e-4), (10 ** 6, 3e-4)])
+    tokenizer = model.text_pipeline.tokenizer
+
+    def batch_of(idx):
+        toks = np.zeros((len(idx), n_tok), np.int32)
+        mel = np.zeros((len(idx), t_pad, LANG_MEL), np.float32)
+        stop = np.zeros((len(idx), t_pad), np.int32)
+        for row, i in enumerate(idx):
+            t, _, m = samples[i]
+            toks[row, 0] = tokenizer.start_token_index
+            toks[row, 1:1 + len(t)] = t
+            toks[row, 1 + len(t)] = tokenizer.end_token_index
+            mel[row, 0] = 0.5
+            mel[row, 1:1 + m.shape[0]] = m
+            mel[row, 1 + m.shape[0]] = -0.5
+            stop[row, :m.shape[0] + 1] = 1
+            stop[row, m.shape[0] + 1] = 2
+        return {'tokens': toks, 'mel': mel, 'stop_probs': stop}
+
+    t0 = time.perf_counter()
+    for step in range(steps):
+        aux = trainer.train_step(batch_of(rng.integers(0, len(samples), 16)), r=1,
+                                 force_encoder_diagonal=step < 100,
+                                 force_decoder_diagonal=step < 800)
+    loss = aux['loss'].item()
+    seconds = time.perf_counter() - t0
+    batch = batch_of(np.arange(8))
+    attn = trainer.val_step(batch, r=1)['decoder_attention']['Decoder_LastBlock_CrossAttention']
+    durations = get_durations_from_alignment(attn[:8], batch['mel'][:8], batch['tokens'][:8],
+                                             weighted=True)[0]
+    errors = [np.abs(durations[i].astype(np.float32)[:len(samples[i][1])]
+                     - samples[i][1]).mean() for i in range(8)]
+    return {'duration_mae': float(np.mean(errors)), 'final_loss': loss, 'seconds': seconds,
+            'mean_duration': float(np.mean([s[1].mean() for s in samples]))}
+
+
 def main():
     card = device_phase()
     build_phase()
@@ -1194,7 +1533,9 @@ def main():
     aligner_kernels = aligner_kernel_phase()
     k2_f32 = aligner_kernels.pop('k2')
     f32_resources = aligner_kernels.pop('f32_resources')
+    aligner_bwd = aligner_backward_phase()
     aligner = aligner_phase(featurize['config'])
+    aligner_train = aligner_training_phase(featurize['config'])
     times = serving['times']
     dec = times['decoder']
     kernels = [{
@@ -1239,6 +1580,21 @@ def main():
     kernels[-2].update(rel_l2_dq=rel_l2['dq'], **trainable['resources']['K3'])
     kernels[-1].update(rel_l2_dk=rel_l2['dk'], rel_l2_dv=rel_l2['dv'],
                        **trainable['resources']['K4'])
+    # the float32 backward, the Aligner training path's
+    for i in range(3):
+        kernels[1 + i]['aligner_training_launches'] = aligner_train['launches'][i]
+    for entry, label in ((kernels[-2], 'K3'), (kernels[-1], 'K4')):
+        limit = aligner_bwd['bounds'][label]
+        entry.update(
+            f32_shape=aligner_bwd['shape'], f32_causal=True, f32_dropout=0.1,
+            f32_max_abs_err=aligner_bwd['errors'][label], f32_ms=aligner_bwd[label],
+            f32_plain_ms=aligner_bwd['plain_bwd'], f32_library_ms=aligner_bwd['library_bwd'],
+            f32_library=(f'scaled_dot_product_attention ({aligner_bwd["library_backend"]}), '
+                         f'f32, TF32 off, dropout 0.1, backward (dQ, dK, dV)'),
+            f32_bound_ms=limit['f32']['bound_ms'], f32_bound_by=limit['f32']['bound_by'],
+            f32_tf32x3_bound_ms=limit['tf32x3']['bound_ms'],
+            f32_resources=aligner_bwd['resources'][label],
+            f32_d256_resources=aligner_bwd['resources'][f'{label}_d256'])
     big, small = log_mel['times'][262144], log_mel['times'][131072]
     kernels.append({
         'name': 'fused_log_mel', 'route': 'cuda',
@@ -1259,6 +1615,10 @@ def main():
         f'{featurize["audio_s_per_s"]:.2f} s of audio/s')
     log(f'duration extraction: {aligner["clips_per_s"]:.2f} clips/s; predict '
         f'{aligner["steps_per_s"]:.1f} decode steps/s')
+    log('Aligner training: ' + ', '.join(f'{k} {v:.2f} ms/step' for k, v
+                                         in aligner_train['ms_per_step'].items())
+        + f'; synthetic-language duration MAE '
+        f'{aligner_train["convergence"]["duration_mae"]:.3f} frames')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -30,3 +30,5 @@ enable_compilation_cache(_cache_dir)
 def pytest_configure(config):
     config.addinivalue_line(
         'markers', 'cuda: runs a CUDA kernel on a card; skips where there is none')
+    config.addinivalue_line(
+        'markers', 'slow: minutes long; the default run deselects it with -m "not slow"')

@@ -16,6 +16,9 @@ imported inside the parity tests, so on a machine with a card and no JAX this
 file runs as ``python -m pytest --noconftest -m cuda
 tests/test_torch_flash_attention_bwd.py``.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -353,3 +356,98 @@ def test_dkv_kernel_keeps_its_accumulators_in_registers(cuda, d):
     assert res['spill_bytes'] == 0 and res['registers'] <= 255
     assert res['query_tile'] == (64 if d <= 192 else 32)
     assert res['dynamic_smem_bytes'] <= 232448
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('shape,causal', [((1, 2, 97, 130, 256), False),
+                                          ((1, 2, 97, 130, 256), True),
+                                          ((2, 1, 300, 300, 256), True),
+                                          ((2, 1, 300, 300, 256), False)],
+                         ids=['ragged', 'ragged-causal', 'aligner-last-block',
+                              'aligner-last-block-not-causal'])
+def test_float32_kernels_at_head_width_256(cuda, shape, causal, rate):
+    """K3 and K4 in float32 at D 256, the Aligner's last decoder block
+    (one head of 256): K3 takes 32 query rows a block there, K4 32 keys.
+    Tq 97 ends in a partial query block, Tk 130 in a 2-key tile; a fully
+    masked row's gradients too."""
+    b, h, tq, tk, d = shape
+    q, k, v, bias, dout = _torch(*_inputs(b, h, tq, tk, d, seed=8, masked_row=b > 1),
+                                 device=cuda)
+    args = (causal, rate, 77, 88)
+    out, lse = flash_attention_fwd_lse(q, k, v, bias, *args)
+    counts = [f.launches for f in (flash_attention_bwd_dq, flash_attention_bwd_dkv)]
+    dq = flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, *args)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash_attention_bwd_dq, flash_attention_bwd_dkv)] == \
+        [c + 1 for c in counts]
+    ref = attention_bwd_plain(q, k, v, bias, out, lse, dout, *args)
+    for mine, r in zip((dq, dk, dv), ref):
+        assert mine.dtype == torch.float32 and torch.isfinite(mine).all()
+        torch.testing.assert_close(mine, r, **F32_GRAD_TOL)
+    # the last, partial query block gets gradient too
+    assert dq[0, :, tq - 1].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('d', [64, 128, 192, 256])
+@pytest.mark.parametrize('kernel', ['dq', 'dkv'])
+def test_float32_kernels_fit_and_keep_accumulators_in_registers(cuda, kernel, d):
+    """The float32 SIMT K3 and K4: 256 threads and a block fits an SM at
+    every head width template; at the Aligner's widths, 64 and 256, the
+    accumulators stay in registers; K3 takes 32 query rows a block at D
+    256."""
+    res = (dq_resources if kernel == 'dq' else dkv_resources)(d, torch.float32)
+    assert res['threads'] == 256 and res['blocks_per_sm'] >= 1
+    assert res['registers'] <= 255
+    if d in (64, 256):
+        assert res['spill_bytes'] == 0
+    assert res['dynamic_smem_bytes'] <= SMEM_PER_BLOCK
+    if kernel == 'dq':
+        assert res['query_rows'] == (32 if d > 224 else 64)
+        assert res['dynamic_smem_bytes'] == _dq_simt_smem_bytes(d)
+
+
+SMEM_PER_BLOCK = 232448   # the most shared memory a block takes on the H100
+BWD_SOURCE = (Path(__file__).resolve().parent.parent / 'transformertts_torch' / 'csrc'
+              / 'flash_attention_bwd.cu')
+
+
+def _dq_simt_rows(d: int) -> int:
+    """K3 float32's query rows a block, read from the source's rule."""
+    rule = re.search(r'int dq_simt_rows\(int d\) \{ return d > (\d+) \? (\d+) : (\d+); \}',
+                     BWD_SOURCE.read_text())
+    limit, small, large = (int(x) for x in rule.groups())
+    return small if d > limit else large
+
+
+def _dq_simt_smem_bytes(d: int, rows: int = None) -> int:
+    """K3 float32's shared memory: Q^T and dO^T [D][rows + 1], K^T and V^T
+    [D][33], K [32][D], dS^T [32][rows + 1] and the bias [32], in float32."""
+    rows = _dq_simt_rows(d) if rows is None else rows
+    return 4 * (2 * d * (rows + 1) + 2 * d * 33 + 32 * d + 32 * (rows + 1) + 32)
+
+
+def test_float32_dq_layout_fits_a_block_at_every_width():
+    """K3 float32 takes 32 query rows a block where 64 would not fit: at D
+    256, 64 rows need 241,920 B and 32 need 172,288 B, against the 227 KB a
+    block takes; every width it accepts fits. K4's layout at D 256,
+    209,536 B, fits too."""
+    assert _dq_simt_smem_bytes(256, 64) == 241920 > SMEM_PER_BLOCK
+    assert _dq_simt_smem_bytes(256) == 172288
+    assert _dq_simt_rows(64) == 64 and _dq_simt_rows(256) == 32
+    for d in range(8, 257, 8):
+        assert _dq_simt_smem_bytes(d) <= SMEM_PER_BLOCK, d
+    assert 4 * (4 * 256 * 33 + 2 * 32 * 256 + 2 * 32 * 33 + 96) == 209536 <= SMEM_PER_BLOCK
+
+
+def test_float32_backward_takes_head_width_256_on_the_checks():
+    """The wrappers' checks no longer refuse float32 D 256 (the CPU runs the
+    plain version; the checks are what a CUDA tensor meets first)."""
+    from transformertts_torch.ops.flash_attention import _check_bwd
+    q, k, v, bias, dout = _torch(*_inputs(1, 1, 5, 7, 256))
+    out, lse = attention_fwd_lse_plain(q, k, v, bias)
+    _check_bwd((q, k, v, bias, out, lse, dout))
+    dq = flash_attention_bwd_dq(q, k, v, bias, out, lse, dout)
+    assert dq.shape == q.shape and torch.isfinite(dq).all()

@@ -45,7 +45,9 @@ PORT_MODULES = [
     'transformertts_torch.extract_durations',
     'transformertts_torch.predict_tts',
     'transformertts_torch.profile_train',
+    'transformertts_torch.train_aligner',
     'transformertts_torch.train_tts',
+    'transformertts_torch.training.aligner_trainer',
     'transformertts_torch.training.base_trainer',
     'transformertts_torch.training.checkpointing',
     'transformertts_torch.training.forward_trainer',
@@ -85,6 +87,8 @@ def test_port_imports_no_jax():
     assert not [m for m in loaded if m.startswith('transformertts_tpu')]
     assert 'transformertts_torch.create_training_data' in loaded
     assert 'transformertts_torch.extract_durations' in loaded
+    assert 'transformertts_torch.train_aligner' in loaded
+    assert 'transformertts_torch.training.aligner_trainer' in loaded
     # h5py is imported only when an hdf5-only model dir is read
     assert 'transformertts_torch.models.convert' in loaded and 'h5py' not in loaded
 

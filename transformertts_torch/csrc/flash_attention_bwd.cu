@@ -32,8 +32,8 @@
 //   (float32 accumulate); P and dS go back to them in bfloat16. Both kernels
 //   have one structure, below.
 // - float32 runs SIMT kernels on the CUDA cores (TF32 would not hold float32
-//   parity): 256 threads, K3 with 64 queries x 32-key tiles, K4 with 32 keys x
-//   32-query tiles.
+//   parity): 256 threads, K3 with 64 queries (32 at D > 224) x 32-key tiles,
+//   K4 with 32 keys x 32-query tiles.
 //
 // K4 in bfloat16 (attn_dkv_mma_kernel). At the decoder's training shape,
 // B32 H2 Tq = Tk = 512 D 192, its four products (S, dP, dV, dK) are
@@ -602,8 +602,7 @@ attn_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 constexpr int SIMT_THREADS = 256;
-constexpr int S64 = 64 + 1;   // strides of transposed 64- and 32-wide tiles
-constexpr int S32 = 32 + 1;
+constexpr int S32 = 32 + 1;   // stride of transposed 32-wide tiles
 
 // Rows [r0, r0 + n) of a (T, D) float32 matrix: row-major [n][D] (rm) and/or
 // transposed [D][ts] (tr), zero outside.
@@ -617,14 +616,21 @@ __device__ __forceinline__ void load_tile_f32(const float* src, int r0, int n, i
     }
 }
 
+// K3's float32 query rows a block: 64, or 32 at D > 224, where Q^T and dO^T
+// of 64 rows would take the shared memory over 227 KB (241,920 B at D 256)
+constexpr int dq_simt_rows(int d) { return d > 224 ? 32 : 64; }
+
 size_t dq_simt_smem_bytes(int d) {
-    // Q^T, dO^T [D][65]; K^T, V^T [D][33]; K [32][D]; dS^T [32][65]; bias [32]
-    return ((size_t)2 * d * S64 + (size_t)2 * d * S32 + (size_t)32 * d + 32 * S64 + 32)
+    // Q^T, dO^T [D][rows + 1]; K^T, V^T [D][33]; K [32][D]; dS^T [32][rows + 1];
+    // bias [32]
+    const size_t sq = dq_simt_rows(d) + 1;
+    return ((size_t)2 * d * sq + (size_t)2 * d * S32 + (size_t)32 * d + 32 * sq + 32)
         * sizeof(float);
 }
 
-// K3: grid (B*H, ceil(Tq / 64)); a thread owns query rows ty + 16 i (i < 4).
-template <int DMAX>
+// K3: grid (B*H, ceil(Tq / ROWS)); a thread owns query rows ty + 16 i
+// (i < ROWS / 16).
+template <int DMAX, int ROWS>
 __global__ void __launch_bounds__(SIMT_THREADS)
 attn_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ bias,
@@ -632,31 +638,33 @@ attn_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ dsum, float* __restrict__ dq, int H,
                     int Tq, int Tk, int D, int causal, float scale, Drop drop) {
     constexpr int NC = DMAX / 16;
+    constexpr int RI = ROWS / 16;
+    constexpr int SQ = ROWS + 1;
     extern __shared__ float smem[];
-    float* qt = smem;                 // [D][65]
-    float* dot = qt + D * S64;        // [D][65]
-    float* kt = dot + D * S64;        // [D][33]
+    float* qt = smem;                 // [D][SQ]
+    float* dot = qt + D * SQ;         // [D][SQ]
+    float* kt = dot + D * SQ;         // [D][33]
     float* vt = kt + D * S32;         // [D][33]
     float* ks = vt + D * S32;         // [32][D]
-    float* dst = ks + 32 * D;         // [32][65]
-    float* bs = dst + 32 * S64;       // [32]
+    float* dst = ks + 32 * D;         // [32][SQ]
+    float* bs = dst + 32 * SQ;        // [32]
 
     const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
     const int bh = blockIdx.x, b = bh / H;
-    const int q0 = blockIdx.y * 64;
+    const int q0 = blockIdx.y * ROWS;
     const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
     const float* biasb = bias + (long long)b * Tk;
 
-    load_tile_f32(q + qoff, q0, 64, Tq, D, nullptr, qt, S64);
-    load_tile_f32(dout + qoff, q0, 64, Tq, D, nullptr, dot, S64);
+    load_tile_f32(q + qoff, q0, ROWS, Tq, D, nullptr, qt, SQ);
+    load_tile_f32(dout + qoff, q0, ROWS, Tq, D, nullptr, dot, SQ);
 
     const bool dropping = drop.thr != 0u;
     const uint32_t hb = dropping ? dropout_bh_hash(drop.key, bh) : 0u;
-    float2 row_lse[4];
-    float row_d[4], acc[4][NC];
-    uint32_t hr[4];
+    float2 row_lse[RI];
+    float row_d[RI], acc[RI][NC];
+    uint32_t hr[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
         int row = q0 + ty + 16 * i;
         row_lse[i] = row < Tq ? row_lse_at(lse, (long long)bh * Tq + row)
                               : make_float2(0.f, 0.f);
@@ -673,14 +681,14 @@ attn_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (tid < 32) bs[tid] = (k0 + tid < Tk) ? biasb[k0 + tid] : 0.f;
         __syncthreads();
 
-        float s[4][2] = {}, dp[4][2] = {};
+        float s[RI][2] = {}, dp[RI][2] = {};
         for (int d = 0; d < D; ++d) {
-            const float* qrow = qt + d * S64 + ty;
-            const float* orow = dot + d * S64 + ty;
+            const float* qrow = qt + d * SQ + ty;
+            const float* orow = dot + d * SQ + ty;
             float k0v = kt[d * S32 + tx], k1v = kt[d * S32 + tx + 16];
             float v0v = vt[d * S32 + tx], v1v = vt[d * S32 + tx + 16];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < RI; ++i) {
                 float qv = qrow[16 * i], ov = orow[16 * i];
                 s[i][0] = fmaf(qv, k0v, s[i][0]);
                 s[i][1] = fmaf(qv, k1v, s[i][1]);
@@ -689,7 +697,7 @@ attn_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
             }
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
             int row = q0 + ty + 16 * i;
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
@@ -699,30 +707,30 @@ attn_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float dpd = dp[i][j];
                 if (dropping)
                     dpd = dropout_keep(hr[i], col, drop.thr) ? dpd * drop.keep_scale : 0.f;
-                dst[kk * S64 + ty + 16 * i] = recompute_ds(p, dpd, row_d[i], row, col, causal);
+                dst[kk * SQ + ty + 16 * i] = recompute_ds(p, dpd, row_d[i], row, col, causal);
             }
         }
         __syncthreads();   // dS tile complete
 
         for (int kk = 0; kk < 32; ++kk) {
-            const float* srow = dst + kk * S64 + ty;
+            const float* srow = dst + kk * SQ + ty;
             const float* krow = ks + kk * D + tx;
-            float sv[4];
+            float sv[RI];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) sv[i] = srow[16 * i];
+            for (int i = 0; i < RI; ++i) sv[i] = srow[16 * i];
 #pragma unroll
             for (int c = 0; c < NC; ++c) {
                 if (tx + 16 * c < D) {
                     float kv = krow[16 * c];
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(sv[i], kv, acc[i][c]);
+                    for (int i = 0; i < RI; ++i) acc[i][c] = fmaf(sv[i], kv, acc[i][c]);
                 }
             }
         }
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
         int row = q0 + ty + 16 * i;
         if (row >= Tq) continue;
 #pragma unroll
@@ -876,32 +884,32 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t bytes, cudaStream_t str
     return (int)cudaGetLastError();
 }
 
-// What a bf16 kernel uses, as the card reports it: out = {registers a
-// thread, local (spill) bytes a thread, static and dynamic shared memory a
-// block, blocks an SM, threads a block, its tile (K3: keys, K4: queries)}.
+// What a kernel uses, as the card reports it: out = {registers a thread,
+// local (spill) bytes a thread, static and dynamic shared memory a block,
+// blocks an SM, threads a block, the tile its width sets (bf16 K3: keys;
+// bf16 K4: queries; f32 K3: query rows a block; f32 K4: queries)}.
 template <typename Kernel>
-int mma_resources(Kernel kernel, size_t bytes, int tile, int* out) {
+int kernel_resources(Kernel kernel, int threads, size_t bytes, int tile, int* out) {
     int blocks = 0;
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, MMA_THREADS,
-                                                            bytes);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, bytes);
     if (err != cudaSuccess) return (int)err;
     const int values[7] = {attr.numRegs, (int)attr.localSizeBytes,
-                           (int)attr.sharedSizeBytes, (int)bytes, blocks, MMA_THREADS,
-                           tile};
+                           (int)attr.sharedSizeBytes, (int)bytes, blocks, threads, tile};
     for (int i = 0; i < 7; ++i) out[i] = values[i];
     return 0;
 }
 
 bool bad_width(int D) { return D < 8 || D > 256 || D % 8 != 0; }
 
+// the smallest tiles (32 query rows, 32 keys) set the most blocks a grid axis
 bool bad_shape(int B, int H, int Tq, int Tk, int D) {
     return B < 1 || H < 1 || Tq < 1 || Tk < 1 || bad_width(D)
-        || (Tq + 63) / 64 > 65535 || (Tk + 31) / 32 > 65535;
+        || (Tq + 31) / 32 > 65535 || (Tk + 31) / 32 > 65535;
 }
 
 }  // namespace
@@ -909,6 +917,14 @@ bool bad_shape(int B, int H, int Tq, int Tk, int D) {
 // the instance of KERNEL for head width D
 #define PICK_D(KERNEL)                                                               \
     (D <= 64 ? KERNEL<64> : D <= 128 ? KERNEL<128> : D <= 192 ? KERNEL<192> : KERNEL<256>)
+
+// the float32 K3 instance for head width D, with its query rows a block
+#define PICK_DQ_SIMT                                                                  \
+    (D <= 64    ? attn_dq_simt_kernel<64, 64>                                          \
+     : D <= 128 ? attn_dq_simt_kernel<128, 64>                                         \
+     : D <= 192 ? attn_dq_simt_kernel<192, 64>                                         \
+     : D <= 224 ? attn_dq_simt_kernel<256, 64>                                         \
+                : attn_dq_simt_kernel<256, 32>)
 
 // K3. dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and dq share it).
 // Contiguous tensors: q, dout, dq (B, H, Tq, D); k, v (B, H, Tk, D); bias
@@ -924,17 +940,18 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
     if (bad_shape(B, H, Tq, Tk, D)) return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     Drop drop{key, thr, keep_scale};
-    dim3 grid(B * H, (Tq + 63) / 64);
     if (dtype == 0) {
         using T = float;
-        return launch(PICK_D(attn_dq_simt_kernel), grid, SIMT_THREADS,
+        const int rows = dq_simt_rows(D);
+        return launch(PICK_DQ_SIMT, dim3(B * H, (Tq + rows - 1) / rows), SIMT_THREADS,
                       dq_simt_smem_bytes(D), s, (const T*)q, (const T*)k, (const T*)v,
                       bias, (const T*)dout, lse, dsum, (T*)dq, H, Tq, Tk, D, causal,
                       scale, drop);
     }
     if (dtype == 1) {
         using T = __nv_bfloat16;
-        return launch(PICK_D(attn_dq_mma_kernel), grid, MMA_THREADS, dq_mma_smem_bytes(D),
+        return launch(PICK_D(attn_dq_mma_kernel), dim3(B * H, (Tq + 63) / 64), MMA_THREADS,
+                      dq_mma_smem_bytes(D),
                       s, (const T*)q, (const T*)k, (const T*)v, bias, (const T*)dout, lse,
                       dsum, (T*)dq, H, Tq, Tk, D, causal, scale, drop);
     }
@@ -968,15 +985,23 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     return -1;
 }
 
-// K3's and K4's bf16 resources at head width D (see mma_resources): 0, a
-// cudaError_t, or -1 for a width the kernels do not take.
-extern "C" int flash_attention_bwd_dq_resources(int D, int* out) {
-    if (bad_width(D)) return -1;
-    return mma_resources(PICK_D(attn_dq_mma_kernel), dq_mma_smem_bytes(D), dq_ktile(D), out);
+// K3's and K4's resources at head width D for dtype (0 float32, 1 bfloat16;
+// see kernel_resources): 0, a cudaError_t, or -1 for arguments the kernels
+// do not take.
+extern "C" int flash_attention_bwd_dq_resources(int D, int dtype, int* out) {
+    if (bad_width(D) || dtype < 0 || dtype > 1) return -1;
+    if (dtype == 0)
+        return kernel_resources(PICK_DQ_SIMT, SIMT_THREADS, dq_simt_smem_bytes(D),
+                                dq_simt_rows(D), out);
+    return kernel_resources(PICK_D(attn_dq_mma_kernel), MMA_THREADS, dq_mma_smem_bytes(D),
+                            dq_ktile(D), out);
 }
 
-extern "C" int flash_attention_bwd_dkv_resources(int D, int* out) {
-    if (bad_width(D)) return -1;
-    return mma_resources(PICK_D(attn_dkv_mma_kernel), dkv_mma_smem_bytes(D), dkv_qtile(D),
-                         out);
+extern "C" int flash_attention_bwd_dkv_resources(int D, int dtype, int* out) {
+    if (bad_width(D) || dtype < 0 || dtype > 1) return -1;
+    if (dtype == 0)
+        return kernel_resources(PICK_D(attn_dkv_simt_kernel), SIMT_THREADS,
+                                dkv_simt_smem_bytes(D), 32, out);
+    return kernel_resources(PICK_D(attn_dkv_mma_kernel), MMA_THREADS, dkv_mma_smem_bytes(D),
+                            dkv_qtile(D), out);
 }

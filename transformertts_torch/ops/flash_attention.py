@@ -266,10 +266,6 @@ def _check_bwd(tensors):
                          'CUDA device')
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError('flash attention backward: tensors must be contiguous')
-    if q.dtype == torch.float32 and q.shape[-1] > 224:
-        # the float32 dQ kernel holds Q^T and dO^T of 64 rows in shared memory
-        raise ValueError(f'flash attention backward: float32 head width '
-                         f'{q.shape[-1]} is over 224')
 
 
 def flash_attention_fwd_lse(q, k, v, bias, causal: bool = False,
@@ -372,20 +368,23 @@ def fwd_resources(d: int, train: bool, dtype: torch.dtype = torch.bfloat16) -> d
                            build.RESOURCES + ('stages', 'key_tile'))
 
 
-def dq_resources(d: int) -> dict:
-    """What K3's bfloat16 kernel at head width ``d`` uses on the card:
-    ``build.RESOURCES`` and its key tile."""
+def dq_resources(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What K3's kernel for ``dtype`` at head width ``d`` uses on the card:
+    ``build.RESOURCES`` and, for the bfloat16 ``mma.sync`` kernel, its key
+    tile; for the float32 SIMT kernel, its query rows a block (64, or 32 at
+    d > 224)."""
     from transformertts_torch.ops import build
-    return build.resources('flash_attention_bwd', 'flash_attention_bwd_dq_resources', (d,),
-                           build.RESOURCES + ('key_tile',))
+    tile = 'key_tile' if dtype == torch.bfloat16 else 'query_rows'
+    return build.resources('flash_attention_bwd', 'flash_attention_bwd_dq_resources',
+                           (d, _DTYPES[dtype]), build.RESOURCES + (tile,))
 
 
-def dkv_resources(d: int) -> dict:
-    """What K4's bfloat16 kernel at head width ``d`` uses on the card:
+def dkv_resources(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What K4's kernel for ``dtype`` at head width ``d`` uses on the card:
     ``build.RESOURCES`` and its query tile."""
     from transformertts_torch.ops import build
-    return build.resources('flash_attention_bwd', 'flash_attention_bwd_dkv_resources', (d,),
-                           build.RESOURCES + ('query_tile',))
+    return build.resources('flash_attention_bwd', 'flash_attention_bwd_dkv_resources',
+                           (d, _DTYPES[dtype]), build.RESOURCES + ('query_tile',))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -1,13 +1,15 @@
 """Where a training step's time goes on the card.
 
     python -m transformertts_torch.profile_train [--config config/training_config.yaml]
+        [--aligner]
 
 Builds the config's ForwardTransformer (the published TTS settings: bf16,
 dropout 0.1, Adam) with weights drawn from a seed, times 15 synchronized
 ``train_step`` calls on one synthetic batch of B32 x 128 tokens x 512
-frames (the step chip_smoke.py times), then records 5 more under
-``torch.profiler`` and prints, per step: the
-unprofiled ms (median of the warm steps after the third), the kernel time by
+frames (the step chip_smoke.py times); with ``--aligner`` the config's
+Aligner (f32, dropout 0.1) at r = 1 on B16 x 896 frames x 160 tokens, the
+published buckets' largest, with no diagonal forced. Then it records 5
+more under ``torch.profiler`` and prints, per step: the unprofiled ms (median of the warm steps after the third), the kernel time by
 kind and the busiest kernels, the kernel launches, the device time covered
 by at least one kernel (a check on the sum: one stream runs one kernel at a
 time), the device's idle share of an unprofiled step (1 - kernel ms / step
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 SHAPE = (32, 128, 512)   # batch, tokens, frames
+ALIGNER_SHAPE = (16, 160, 896)
 WARM, STEPS, TOP = 15, 5, 15
 
 # kernel kinds, by a substring of the kernel's name; the first match wins
@@ -54,6 +57,21 @@ def synthetic_batch(model, b: int = 32, n_tok: int = 128, n_frames: int = 512,
     mel = np.clip(rng.normal(-4.0, 1.5, (b, n_frames, model.mel_channels)), np.log(1e-5), 2.0)
     return {'tokens': tokens, 'mel': mel.astype(np.float32), 'durations': durations,
             'pitch': rng.standard_normal((b, n_tok)).astype(np.float32)}
+
+
+def aligner_batch(model, b: int = 16, n_tok: int = 160, n_frames: int = 896,
+                  seed: int = 0) -> dict:
+    """scripts/measure_train_step.py's Aligner batch: 90 % of each row's
+    tokens real, a standard normal mel, stop classes 1 and 2 on the last
+    frame."""
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((b, n_tok), np.int64)
+    tokens[:, :int(n_tok * 0.9)] = rng.integers(
+        1, model.text_pipeline.tokenizer.vocab_size, size=(b, int(n_tok * 0.9)))
+    stop = np.ones((b, n_frames), np.int64)
+    stop[:, -1] = 2
+    mel = rng.standard_normal((b, n_frames, model.mel_channels)).astype(np.float32)
+    return {'tokens': tokens, 'mel': mel, 'stop_probs': stop}
 
 
 def kind_of(name: str) -> str:
@@ -94,20 +112,24 @@ def busy_ms(prof) -> float:
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--config', default='config/training_config.yaml')
+    parser.add_argument('--aligner', action='store_true',
+                        help="profile the config's Aligner at r = 1 instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: no CUDA device')
     from transformertts_torch.utils.config import TrainingConfigManager
-    cm = TrainingConfigManager(args.config)
+    cm = TrainingConfigManager(args.config, aligner=args.aligner)
     model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(0)).to('cuda')
     trainer = cm.get_trainer(model)
-    batch = synthetic_batch(model, *SHAPE)
+    shape = ALIGNER_SHAPE if args.aligner else SHAPE
+    batch = (aligner_batch if args.aligner else synthetic_batch)(model, *shape)
+    options = {'r': 1} if args.aligner else {}
 
     times = []
     for _ in range(WARM):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.train_step(batch)
+        trainer.train_step(batch, **options)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_ms = statistics.median(times[3:]) * 1e3
@@ -118,7 +140,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            trainer.train_step(batch)
+            trainer.train_step(batch, **options)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     table = kernel_table(prof)
@@ -132,8 +154,9 @@ def main(argv=None):
     launches = sum(c for _, c in table.values()) / n
     busy = busy_ms(prof) / n
 
-    print(f'train step B{SHAPE[0]} x {SHAPE[1]} tokens x {SHAPE[2]} frames, '
-          f'{cm.config.get("compute_dtype")}, dropout {cm.config["dropout_rate"]}')
+    print(f'{cm.model_kind} train step B{shape[0]} x {shape[1]} tokens x {shape[2]} frames'
+          f'{", r 1" if args.aligner else ""}, {cm.config.get("compute_dtype")}, dropout '
+          f'{cm.config["dropout_rate"]}')
     print(f'unprofiled: {step_ms:.2f} ms a step (median of warm steps 4-{WARM})')
     print(f'kernels: {kernel_ms:.2f} ms a step summed, {busy:.2f} ms covered, '
           f'{launches:.0f} launches a step; idle share of an unprofiled step '

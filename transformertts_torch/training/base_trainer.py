@@ -22,15 +22,30 @@ def split_batch(batch: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.
 
 
 def merge_aux(auxes: List[dict]) -> dict:
-    """Scalars: the mean over micro-batches; per-sample tensors: concatenated."""
-    return {k: (torch.stack([a[k] for a in auxes]).mean() if auxes[0][k].dim() == 0
-                else torch.cat([a[k] for a in auxes]))
-            for k in auxes[0]}
+    """Scalars: the mean over micro-batches; per-sample tensors: concatenated
+    along the batch; dicts of them (attention maps by layer): merged alike."""
+    merged = {}
+    for k, first in auxes[0].items():
+        items = [a[k] for a in auxes]
+        if isinstance(first, dict):
+            merged[k] = merge_aux(items)
+        elif first.dim() == 0:
+            merged[k] = torch.stack(items).mean()
+        else:
+            merged[k] = torch.cat(items)
+    return merged
+
+
+def detach_aux(aux: dict) -> dict:
+    """``aux`` with every tensor, also inside nested dicts, detached."""
+    return {k: detach_aux(v) if isinstance(v, dict) else v.detach() for k, v in aux.items()}
 
 
 class BaseTrainer:
     """Owns the optimizer, the step count and the dropout generators.
-    Subclasses define ``loss(batch, training, generator) -> (loss, aux)``."""
+    Subclasses define ``loss(batch, training, generator, **options) ->
+    (loss, aux)``; ``train_step`` and ``val_step`` pass their keyword
+    options on to it."""
 
     def __init__(self, model: torch.nn.Module,
                  learning_rate_schedule: Sequence[Tuple[float, float]],
@@ -65,10 +80,10 @@ class BaseTrainer:
         return out
 
     def loss(self, batch: Dict[str, torch.Tensor], training: bool,
-             generator: torch.Generator) -> Tuple[torch.Tensor, dict]:
+             generator: torch.Generator, **options) -> Tuple[torch.Tensor, dict]:
         raise NotImplementedError
 
-    def train_step(self, batch: Dict[str, np.ndarray]) -> dict:
+    def train_step(self, batch: Dict[str, np.ndarray], **options) -> dict:
         """One Adam update on the mean of the micro-batch gradients (one
         micro-batch unless ``grad_accumulation`` > 1). Returns the detached
         losses and per-sample outputs."""
@@ -78,15 +93,15 @@ class BaseTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         auxes = []
         for mb in micro:
-            loss, aux = self.loss(mb, True, generator)
+            loss, aux = self.loss(mb, True, generator, **options)
             (loss / len(micro)).backward()
-            auxes.append({k: v.detach() for k, v in aux.items()})
+            auxes.append(detach_aux(aux))
         self.optimizer.step()
         self.step += 1
         return merge_aux(auxes)
 
     @torch.no_grad()
-    def val_step(self, batch: Dict[str, np.ndarray]) -> dict:
+    def val_step(self, batch: Dict[str, np.ndarray], **options) -> dict:
         """Losses and predictions without dropout and without gradients."""
-        _, aux = self.loss(self.to_device(batch), False, None)
+        _, aux = self.loss(self.to_device(batch), False, None, **options)
         return aux

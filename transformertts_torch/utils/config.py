@@ -7,7 +7,8 @@ or ``aligner`` with ``aligner=True``), are merged into one flat dict; the
 session names key the artifact directories, so the port reads and writes the
 same data, log and weight dirs as the JAX package for the same config. The
 model (a ForwardTransformer, or with ``aligner=True`` an Aligner at the
-reduction schedule's first r) and the trainer come from the merged config;
+reduction schedule's first r) and its trainer (a ``ForwardTrainer`` or an
+``AlignerTrainer``) come from the merged config;
 ``load_model`` restores a model from a training checkpoint of either package.
 Models go to the card unless the caller names another device.
 """
@@ -62,8 +63,8 @@ class TrainingConfigManager:
         if self.model_kind == 'aligner':
             self.max_r = int(self.config['reduction_factor_schedule'][0][1])
             self.stop_scaling = float(self.config.get('stop_loss_scaling', 1.0))
-            # the JAX trainer's bf16 P·V boundary; the port's f32 kernels compute
-            # P·V in float32 whatever it says (ROADMAP, Queue 1)
+            # the JAX trainer's bf16 P·V boundary; the port computes P·V in
+            # float32 whatever it says (its trainer takes and ignores it)
             self.narrow_pv = bool(self.config.get('narrow_pv', True))
 
     @staticmethod
@@ -123,9 +124,17 @@ class TrainingConfigManager:
         return model.to(device)
 
     def get_trainer(self, model):
+        """The trainer of this config's model kind: an ``AlignerTrainer`` or
+        a ``ForwardTrainer``."""
+        schedule = self.config['learning_rate_schedule']
+        grad_accumulation = int(self.config.get('grad_accumulation', 1))
+        if self.model_kind == 'aligner':
+            from transformertts_torch.training.aligner_trainer import AlignerTrainer
+            return AlignerTrainer(model, schedule, stop_scaling=self.stop_scaling,
+                                  grad_accumulation=grad_accumulation,
+                                  narrow_pv=self.narrow_pv)
         from transformertts_torch.training.forward_trainer import ForwardTrainer
-        return ForwardTrainer(model, self.config['learning_rate_schedule'],
-                              grad_accumulation=int(self.config.get('grad_accumulation', 1)))
+        return ForwardTrainer(model, schedule, grad_accumulation=grad_accumulation)
 
     def create_remove_dirs(self, clear_dir: bool = False, clear_logs: bool = False,
                            clear_weights: bool = False, assume_yes: bool = False):

@@ -73,9 +73,11 @@ prints no result):
    cross-attention, the encoder's self-attention; B16 x 896 frames x 160
    tokens) at dropout 0 and 0.1, what K3's and K4's float32 kernels use on
    the card (it fails if D 64 or 256 spills or fits no block), then K3 and
-   K4 timed at the decoder's self-attention with dropout 0.1 beside the
-   plain backward, ``scaled_dot_product_attention``'s float32 backward and
-   two bounds (on the CUDA cores, and as 3xTF32);
+   K4 timed at the decoder's self-attention (beside the plain backward
+   too) and at its last block's (D 256), and K4 at the cross-attention,
+   with dropout 0.1 beside ``scaled_dot_product_attention``'s float32
+   backward and two bounds (on the CUDA cores, and as 3xTF32), each K4
+   time beside the SIMT kernel's that it replaced;
 11. Aligner slice: config/training_config.yaml's published ``aligner_settings``
    (d 256, encoder heads [4, 4, 4, 4], decoder heads [4, 4, 4, 4, 1], float32)
    with weights drawn from a seed, saved as a model dir and loaded back,
@@ -177,8 +179,13 @@ PREDICT_MAX_LENGTH = 400
 # self-attention at D 64 and its last block's at D 256, the cross-attention,
 # the encoder's self-attention
 ALIGNER_BWD_SHAPE = (16, 4, 896, 896, 64)
-ALIGNER_BWD_CASES = [(ALIGNER_BWD_SHAPE, True), ((16, 1, 896, 896, 256), True),
-                     ((16, 4, 896, 160, 64), False), ((16, 4, 160, 160, 64), False)]
+ALIGNER_BWD_LAST_SHAPE = (16, 1, 896, 896, 256)
+ALIGNER_BWD_CROSS_SHAPE = (16, 4, 896, 160, 64)
+ALIGNER_BWD_CASES = [(ALIGNER_BWD_SHAPE, True), (ALIGNER_BWD_LAST_SHAPE, True),
+                     (ALIGNER_BWD_CROSS_SHAPE, False), ((16, 4, 160, 160, 64), False)]
+# the float32 K4 that the 3xTF32 kernel replaced, SIMT on the CUDA cores, at
+# ALIGNER_BWD_SHAPE causal, dropout 0.1 (H100 80GB HBM3, 700 W; PERF.md)
+SIMT_K4_F32_MS = 2.1978
 # (B, frames, tokens, r): scripts/measure_train_step.py's three buckets at r = 1,
 # and the largest at r = 10
 ALIGNER_TRAIN_BUCKETS = [(64, 256, 48, 1), (32, 512, 96, 1), (16, 896, 160, 1),
@@ -1221,7 +1228,8 @@ def aligner_backward_phase() -> dict:
     training shapes (``ALIGNER_BWD_CASES``) at dropout 0 and 0.1, what K3's
     and K4's float32 kernels use on the card (it fails if D 64 or 256
     spills or fits no block), then K3 and K4 timed at the decoder's causal
-    self-attention with dropout 0.1 beside the plain backward,
+    self-attention (beside the plain backward too) and its last block's at
+    D 256, and K4 at the cross-attention, each with dropout 0.1 beside
     ``scaled_dot_product_attention``'s float32 backward and two bounds."""
     fa, _ = _trainable_ops()
     gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
@@ -1260,45 +1268,66 @@ def aligner_backward_phase() -> dict:
     resources['K3_d256'] = fa.dq_resources(256, torch.float32)
     resources['K4_d256'] = fa.dkv_resources(256, torch.float32)
 
-    b, h, t, _, d = ALIGNER_BWD_SHAPE
-    q, k, v, bias = _qkv(ALIGNER_BWD_SHAPE, torch.float32, gen)
+    decoder = _f32_backward_times(ALIGNER_BWD_SHAPE, True, gen, plain=True)
+    last = _f32_backward_times(ALIGNER_BWD_LAST_SHAPE, True, gen)
+    cross = _f32_backward_times(ALIGNER_BWD_CROSS_SHAPE, False, gen, names=('K4',))
+    for label, run in (('decoder', decoder), ('last block', last), ('cross', cross)):
+        log(f'f32 K4 {label} {run["shape"]}: {run["K4"]:.4f} ms (the SIMT kernel it replaced: '
+            f'{SIMT_K4_F32_MS} ms at {ALIGNER_BWD_SHAPE} causal, dropout 0.1), '
+            f'{run["bounds"]["K4"]["tf32x3"]["bound_ms"] / run["K4"]:.1%} of its 3xTF32 bound; '
+            f'{run["library_backend"]} f32 backward {run["library_bwd"]:.4f} ms')
+    return {'errors': errors, 'resources': resources, **decoder, 'd256': last, 'cross': cross}
+
+
+def _f32_backward_times(shape, causal: bool, gen, names=('K3', 'K4'), plain=False) -> dict:
+    """K3 and K4 (``names``) in float32 at ``shape`` with dropout 0.1,
+    timed beside ``scaled_dot_product_attention``'s float32 backward (and,
+    with ``plain``, the plain backward) and two bounds: on the CUDA cores,
+    and as 3xTF32."""
+    fa, _ = _trainable_ops()
+    b, h, tq, tk, d = shape
+    q, k, v, bias = _qkv(shape, torch.float32, gen)
     dout = torch.randn(q.shape, device='cuda', generator=gen)
-    args = (True, 0.1, 1234, 5678)
+    args = (causal, 0.1, 1234, 5678)
     out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
     dsum = fa.row_dot(dout, out)
-    k3 = _time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, *args,
-                                                    dsum=dsum))
-    k4 = _time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args,
-                                                     dsum=dsum))
-    plain = _time_ms(lambda: fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, *args),
-                     iters=5)
-    # the library's additive (B, 1, T, T) mask: key padding plus the look-ahead
-    look_ahead = torch.triu(torch.full((t, t), -1e9, device='cuda'), diagonal=1)
-    library = _library_training_attention(q, k, v, bias[:, None, None, :] + look_ahead, dout)
+    calls = {'K3': lambda: fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, *args,
+                                                     dsum=dsum),
+             'K4': lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args,
+                                                      dsum=dsum)}
+    result = {'shape': list(shape), 'causal': causal}
+    result.update({name: _time_ms(calls[name]) for name in names})
+    if plain:
+        result['plain_bwd'] = _time_ms(
+            lambda: fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, *args), iters=5)
+    # the library's additive (B, 1, Tq, Tk) mask: key padding plus the look-ahead
+    mask = bias[:, None, None, :]
+    if causal:
+        mask = mask + torch.triu(torch.full((tq, tk), -1e9, device='cuda'), diagonal=1)
+    result.update(_library_training_attention(q, k, v, mask, dout))
     # the products the causal mask leaves: K3 three (S, dP, dS·K), K4 four
     # (S, dP, dV, dK), each 2·kept·D; float32 inputs q, k, v, dO, (m, log l),
     # D and bias read once, dQ or dK and dV written once
-    kept = b * h * t * (t + 1) // 2
-    row = 4 * b * h * t * d
-    small = 8 * b * h * t + 4 * b * h * t + 4 * b * t
-    bounds = {}
-    for name, products, outputs in (('K3', 3, 1), ('K4', 4, 2)):
-        flops, nbytes = 2 * products * kept * d, (4 + outputs) * row + small
-        bounds[name] = {'f32': bound(flops, nbytes, 'f32'),
-                        'tf32x3': bound(3 * flops, nbytes, 'tf32'),
-                        'gflop': flops / 1e9, 'mbytes': nbytes / 1e6}
-        log(f'f32 {name} {ALIGNER_BWD_SHAPE} causal, dropout 0.1: kernel '
-            f'{k3 if name == "K3" else k4:.4f} ms; bound {bounds[name]["f32"]["bound_ms"]:.4f} '
-            f'ms on the CUDA cores ({bounds[name]["f32"]["bound_by"]}, {flops / 1e9:.2f} GFLOP '
-            f'that the causal mask leaves; its {nbytes / 1e6:.1f} MB take '
-            f'{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), 3xTF32 bound '
-            f'{bounds[name]["tf32x3"]["bound_ms"]:.4f} ms')
-    log(f'f32 backward {ALIGNER_BWD_SHAPE} causal, dropout 0.1: K3 {k3:.4f} + K4 {k4:.4f} = '
-        f'{k3 + k4:.4f} ms; plain backward {plain:.4f} ms; scaled_dot_product_attention '
-        f'({library["library_backend"]}, f32, TF32 off) backward {library["library_bwd"]:.4f} '
-        f'ms (forward {library["library_fwd"]:.4f})')
-    return {'errors': errors, 'resources': resources, 'shape': list(ALIGNER_BWD_SHAPE),
-            'K3': k3, 'K4': k4, 'plain_bwd': plain, 'bounds': bounds, **library}
+    kept = b * h * (sum(min(r + 1, tk) for r in range(tq)) if causal else tq * tk)
+    inputs = 8 * b * h * (tq + tk) * d + 12 * b * h * tq + 4 * b * tk
+    result['bounds'] = {}
+    for name in names:
+        products, written = (3, 4 * b * h * tq * d) if name == 'K3' else (4, 8 * b * h * tk * d)
+        flops, nbytes = 2 * products * kept * d, inputs + written
+        limit = result['bounds'][name] = {
+            'f32': bound(flops, nbytes, 'f32'), 'tf32x3': bound(3 * flops, nbytes, 'tf32'),
+            'gflop': flops / 1e9, 'mbytes': nbytes / 1e6}
+        log(f'f32 {name} {shape} causal={causal}, dropout 0.1: kernel {result[name]:.4f} ms; '
+            f'bound {limit["f32"]["bound_ms"]:.4f} ms on the CUDA cores '
+            f'({limit["f32"]["bound_by"]}, {flops / 1e9:.2f} GFLOP that the mask leaves; its '
+            f'{nbytes / 1e6:.1f} MB take {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), 3xTF32 bound '
+            f'{limit["tf32x3"]["bound_ms"]:.4f} ms')
+    log(f'f32 backward {shape} causal={causal}, dropout 0.1: '
+        + ' + '.join(f'{name} {result[name]:.4f}' for name in names)
+        + (f' ms; plain backward {result["plain_bwd"]:.4f}' if plain else ' ms')
+        + f'; scaled_dot_product_attention ({result["library_backend"]}, f32, TF32 off) '
+        f'backward {result["library_bwd"]:.4f} ms (forward {result["library_fwd"]:.4f})')
+    return result
 
 
 def _aligner_session(cfg, work: Path, overrides: dict) -> Path:
@@ -1595,6 +1624,16 @@ def main():
             f32_tf32x3_bound_ms=limit['tf32x3']['bound_ms'],
             f32_resources=aligner_bwd['resources'][label],
             f32_d256_resources=aligner_bwd['resources'][f'{label}_d256'])
+        # the last decoder block's one head of 256, and K4 at the cross-attention
+        for key, run in (('d256', aligner_bwd['d256']), ('cross', aligner_bwd['cross'])):
+            if label in run:
+                entry.update({
+                    f'f32_{key}_shape': run['shape'], f'f32_{key}_causal': run['causal'],
+                    f'f32_{key}_ms': run[label],
+                    f'f32_{key}_tf32x3_bound_ms': run['bounds'][label]['tf32x3']['bound_ms'],
+                    f'f32_{key}_library_ms': run['library_bwd'],
+                    f'f32_{key}_library': f'scaled_dot_product_attention '
+                                          f'({run["library_backend"]}), f32 backward'})
     big, small = log_mel['times'][262144], log_mel['times'][131072]
     kernels.append({
         'name': 'fused_log_mel', 'route': 'cuda',

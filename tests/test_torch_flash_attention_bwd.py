@@ -368,7 +368,8 @@ def test_dkv_kernel_keeps_its_accumulators_in_registers(cuda, d):
                               'aligner-last-block-not-causal'])
 def test_float32_kernels_at_head_width_256(cuda, shape, causal, rate):
     """K3 and K4 in float32 at D 256, the Aligner's last decoder block
-    (one head of 256): K3 takes 32 query rows a block there, K4 32 keys.
+    (one head of 256): K3 takes 32 query rows a block there, K4 32 keys (4
+    warps to each 16 keys, each with a quarter of the columns).
     Tq 97 ends in a partial query block, Tk 130 in a 2-key tile; a fully
     masked row's gradients too."""
     b, h, tq, tk, d = shape
@@ -394,10 +395,11 @@ def test_float32_kernels_at_head_width_256(cuda, shape, causal, rate):
 @pytest.mark.parametrize('d', [64, 128, 192, 256])
 @pytest.mark.parametrize('kernel', ['dq', 'dkv'])
 def test_float32_kernels_fit_and_keep_accumulators_in_registers(cuda, kernel, d):
-    """The float32 SIMT K3 and K4: 256 threads and a block fits an SM at
-    every head width template; at the Aligner's widths, 64 and 256, the
-    accumulators stay in registers; K3 takes 32 query rows a block at D
-    256."""
+    """The float32 K3 (SIMT) and K4 (3xTF32): 256 threads and a block fits
+    an SM at every head width template; at the Aligner's widths, 64 and 256,
+    the accumulators stay in registers; K3 takes 32 query rows a block at D
+    256; K4's tiles and shared memory are those of the source's rules."""
+    from test_torch_flash_attention_bwd_tf32 import BQ, KEYS, STAGES, _smem_bytes
     res = (dq_resources if kernel == 'dq' else dkv_resources)(d, torch.float32)
     assert res['threads'] == 256 and res['blocks_per_sm'] >= 1
     assert res['registers'] <= 255
@@ -407,6 +409,10 @@ def test_float32_kernels_fit_and_keep_accumulators_in_registers(cuda, kernel, d)
     if kernel == 'dq':
         assert res['query_rows'] == (32 if d > 224 else 64)
         assert res['dynamic_smem_bytes'] == _dq_simt_smem_bytes(d)
+    else:
+        assert (res['query_tile'], res['key_block'], res['stages']) == \
+            (BQ, KEYS(d), STAGES(d))
+        assert res['dynamic_smem_bytes'] == _smem_bytes(d)
 
 
 SMEM_PER_BLOCK = 232448   # the most shared memory a block takes on the H100
@@ -414,12 +420,16 @@ BWD_SOURCE = (Path(__file__).resolve().parent.parent / 'transformertts_torch' / 
               / 'flash_attention_bwd.cu')
 
 
-def _dq_simt_rows(d: int) -> int:
-    """K3 float32's query rows a block, read from the source's rule."""
-    rule = re.search(r'int dq_simt_rows\(int d\) \{ return d > (\d+) \? (\d+) : (\d+); \}',
-                     BWD_SOURCE.read_text())
-    limit, small, large = (int(x) for x in rule.groups())
-    return small if d > limit else large
+def _rule(name: str):
+    """A design rule of the source, ``int name(int d) { return d > L ? A : B; }``,
+    as a function of the head-width template."""
+    found = re.search(rf'int {name}\(int d\) \{{ return d > (\d+) \? (\d+) : (\d+); \}}',
+                      BWD_SOURCE.read_text())
+    limit, small, large = (int(x) for x in found.groups())
+    return lambda d: small if d > limit else large
+
+
+_dq_simt_rows = _rule('dq_simt_rows')   # K3 float32's query rows a block
 
 
 def _dq_simt_smem_bytes(d: int, rows: int = None) -> int:
@@ -432,14 +442,15 @@ def _dq_simt_smem_bytes(d: int, rows: int = None) -> int:
 def test_float32_dq_layout_fits_a_block_at_every_width():
     """K3 float32 takes 32 query rows a block where 64 would not fit: at D
     256, 64 rows need 241,920 B and 32 need 172,288 B, against the 227 KB a
-    block takes; every width it accepts fits. K4's layout at D 256,
-    209,536 B, fits too."""
+    block takes; every width it accepts fits. K4's 3xTF32 layout at D 256,
+    206,888 B (K and V of 32 keys, two stages of 32 queries), fits too."""
+    from test_torch_flash_attention_bwd_tf32 import _smem_bytes
     assert _dq_simt_smem_bytes(256, 64) == 241920 > SMEM_PER_BLOCK
     assert _dq_simt_smem_bytes(256) == 172288
     assert _dq_simt_rows(64) == 64 and _dq_simt_rows(256) == 32
     for d in range(8, 257, 8):
         assert _dq_simt_smem_bytes(d) <= SMEM_PER_BLOCK, d
-    assert 4 * (4 * 256 * 33 + 2 * 32 * 256 + 2 * 32 * 33 + 96) == 209536 <= SMEM_PER_BLOCK
+    assert _smem_bytes(256) == 206888 <= SMEM_PER_BLOCK
 
 
 def test_float32_backward_takes_head_width_256_on_the_checks():

@@ -31,9 +31,11 @@
 // - bfloat16 runs all products on the tensor cores with mma.sync m16n8k16
 //   (float32 accumulate); P and dS go back to them in bfloat16. Both kernels
 //   have one structure, below.
-// - float32 runs SIMT kernels on the CUDA cores (TF32 would not hold float32
-//   parity): 256 threads, K3 with 64 queries (32 at D > 224) x 32-key tiles,
-//   K4 with 32 keys x 32-query tiles.
+// - float32 (the Aligner) runs K4 on the tensor cores as 3xTF32 (one TF32
+//   product would not hold float32 parity; see tf32_tma.cuh), below. K3 is
+//   still a SIMT kernel on the CUDA cores: 256 threads, 64 queries (32 at
+//   D > 224) x 32-key tiles; a causal block stops at its last row's key
+//   tile, since dQ takes nothing from look-ahead keys (dS = 0 there).
 //
 // K4 in bfloat16 (attn_dkv_mma_kernel). At the decoder's training shape,
 // B32 H2 Tq = Tk = 512 D 192, its four products (S, dP, dV, dK) are
@@ -90,13 +92,64 @@
 // swap buffer 32,768 B and the bias ring 512 B, 186,880 B in all: one block
 // of 8 warps an SM. At D > 192 the key tile is 32, since 64 would need
 // 236,032 B, over a block's 232,448.
+//
+// K4 in float32 (attn_dkv_tf32_kernel), the Aligner's. At its decoder
+// self-attention, B16 H4 Tq = Tk = 896 D 64 causal, the four products keep
+// 13.2 GFLOP once the mask is taken out; as 3xTF32 (three TF32 products
+// each) that is 0.0798 ms at 495 TFLOP/s, against 88.8 MB of inputs and
+// outputs in 0.0265 ms: bound by operations. The SIMT kernel it replaced
+// took 2.1978 ms there (H100 80GB HBM3, 700 W), for five reasons; what this
+// design does about each:
+// 1. Every product was FMA on the CUDA cores, one shared-memory load an
+//    FMA. Now all four run on the tensor cores as 3xTF32 on mma.sync
+//    m16n8k8 (tf32_tma.cuh): S^T = K Q^T and dP^T = V dO^T take K or V,
+//    resident, as A and the streamed Q or dO as B (the forward's S with
+//    queries and keys exchanged); P o M and dS are formed in the score
+//    accumulators and fed as the A operand of dV += (P o M)^T dO and
+//    dK += dS^T Q, whose B fragments read dO and Q in the permuted query
+//    order 2 t, 2 t + 1 (the forward's P.V). Every fragment load reads 32
+//    distinct banks of the swizzled tiles. Each 8-wide step's three
+//    products go to a fresh accumulator that is added in float32
+//    (mma_3xtf32_add): chained in one accumulator, the tensor cores'
+//    truncation of the carried sum put dK over the float32 bar where
+//    dS = P o (dP - D) cancels, and dV where a sum over 896 queries does.
+// 2. It walked every query tile. A causal block now starts at the tile of
+//    its first key kb0: rows before kb0 see its keys only as look-ahead,
+//    where dS = 0 and P = 0 exactly, so the skip is exact, and the walk
+//    drops to about half. A fully masked row (m within 128 of NEG_INF) has
+//    P = 1/Tk at every key, so the block reads the (m, log l) of the rows
+//    before kb0 first and starts at the tile of the first such row.
+// 3. Each tile was loaded and transposed by scalar loads between two
+//    barriers. Now K and V come in once by TMA and Q and dO through a ring
+//    of 32-query tiles (3 stages, 2 at D > 128) under full/empty mbarriers,
+//    all in 32-column boxes under the 128-byte swizzle, with no transposed
+//    copy; warp 0 issues tile i + STAGES - 1 while tile i computes.
+// 4. The dropout row hash was recomputed for every element. Now each
+//    tile's (m, log l) and D (by cp.async, tracked by the stage's full
+//    barrier) and its rows' hashes sit in the ring beside Q and dO.
+// 5. D 256 had one 256-thread block of 2 x 2 x 16 accumulators a thread.
+//    Now a block is 8 warps in groups that share 16 keys: pairs at D <= 192
+//    (64 keys a block), quads at D 256 (32 keys). Half the group computes
+//    S^T and half dP^T, each over its share of the tile's queries; they
+//    swap the scores through shared memory (a float4 a lane, between two
+//    barriers of the group), every warp forms P o M and dS, and each
+//    accumulates dK and dV in registers over its 1/G of the columns: 64
+//    floats a thread at D 256, 32 at D 64.
+// Grids on the 132 SMs: the decoder's self-attention is 896 blocks of 64
+// keys at two blocks an SM (100,920 B each, at most 128 registers a
+// thread), 13,440 (block, tile) pairs once causal; the last block's head of
+// 256 is 448 blocks of 32 keys at one an SM (206,888 B), 6,496 pairs; the
+// cross-attention (Tk 160) 192 blocks, one round at two an SM. The grid
+// takes the lowest key blocks (a causal mask's heaviest) first.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "tf32_tma.cuh"
 
 namespace {
 
@@ -149,10 +202,6 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // four 8 x 8 bf16 matrices; lanes 8i .. 8i + 7 give the row addresses of
@@ -674,7 +723,10 @@ attn_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
     }
 
-    for (int k0 = 0; k0 < Tk; k0 += 32) {
+    // causal: keys past the block's last row are look-ahead for all its
+    // rows, where dS is 0, fully masked rows included
+    const int k_end = causal ? min(Tk, q0 + ROWS) : Tk;
+    for (int k0 = 0; k0 < k_end; k0 += 32) {
         __syncthreads();
         load_tile_f32(k + koff, k0, 32, Tk, D, ks, kt, S32);
         load_tile_f32(v + koff, k0, 32, Tk, D, nullptr, vt, S32);
@@ -741,130 +793,298 @@ attn_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-size_t dkv_simt_smem_bytes(int d) {
-    // K^T, V^T, Q^T, dO^T [D][33]; Q, dO [32][D]; (P o M) and dS as [32][33];
-    // lse [32][2], D [32]
-    return ((size_t)4 * d * S32 + (size_t)2 * 32 * d + 2 * 32 * S32 + 96) * sizeof(float);
+// ---------------------------------------------------------------------------
+// K4, float32: 3xTF32 on mma.sync m16n8k8, K/V resident, query tiles that
+// TMA brings into a ring (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int TF32_THREADS = 256;       // 8 warps: BK / 16 groups of G warps
+constexpr uint32_t TILE_ALIGN = 1024;   // the 128-byte swizzle's pattern: 8 rows
+
+// the design by head-width template: keys a block (BK), stages of the query
+// ring, blocks an SM (the register cap: 128 a thread for 2), the warps that
+// share 16 keys (G); every width takes 32-query tiles (BQ)
+constexpr int DKV_TF32_QUERIES = 32;
+__host__ __device__ constexpr int dkv_tf32_keys(int d) { return d > 192 ? 32 : 64; }
+__host__ __device__ constexpr int dkv_tf32_stages(int d) { return d > 128 ? 2 : 3; }
+__host__ __device__ constexpr int dkv_tf32_blocks(int d) { return d > 64 ? 1 : 2; }
+__host__ __device__ constexpr int dkv_tf32_group(int d) { return 8 / (dkv_tf32_keys(d) / 16); }
+
+// K and V; a ring of Q, dO, (m, log l), D and the dropout row hashes; the
+// swap buffer of S^T and dP^T (float4 [BK / 16][2][BQ / 8][32 lanes]); a full
+// and an empty barrier a stage and K/V's; one swizzle pattern of alignment
+__host__ __device__ constexpr size_t dkv_tf32_smem_bytes(int d) {
+    return TILE_ALIGN + (size_t)2 * dkv_tf32_keys(d) * d * 4
+        + (size_t)dkv_tf32_stages(d) * DKV_TF32_QUERIES * (2 * d * 4 + 16)
+        + (size_t)dkv_tf32_keys(d) * DKV_TF32_QUERIES * 8
+        + 8 * (1 + 2 * dkv_tf32_stages(d));
 }
 
-// K4: grid (B*H, ceil(Tk / 32)); a thread owns keys ty + 16 i (i < 2).
+// d += A B as mma_3xtf32, but the three products go to a fresh accumulator
+// that is then added to d in float32 (round to nearest). The tensor cores
+// truncate the sum they carry: chained over the Tq / 8 steps of dV or dK, or
+// the D / 8 of a score, that bias grows with the chain and showed over the
+// float32 bar where the sum cancels (dV of the cross-attention, dS where
+// dP = D); added this way the errors stay unbiased.
+__device__ __forceinline__ void mma_3xtf32_add(float (&d)[4], const uint32_t (&ab)[4],
+                                               const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                               const uint32_t (&bs)[2]) {
+    float step[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_3xtf32(step, ab, as, bb, bs);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += step[e];
+}
+
+// the threads of one key group (barrier 0 is __syncthreads')
+__device__ __forceinline__ void group_sync(int group, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(group + 1), "r"(threads) : "memory");
+}
+
+// K4 f32: a 1-D grid of B*H x ceil(Tk / BK) blocks, the lowest key blocks
+// (a causal mask's heaviest) first. Warp w belongs to key group w % (BK / 16),
+// keys kb0 + 16 (w % (BK / 16)) .. + 15, with rank w / (BK / 16) of G in it:
+// ranks below G / 2 compute S^T = K Q^T, the others dP^T = V dO^T, each over
+// BQ / (G / 2) of the tile's queries; they swap the scores through shared
+// memory, and every warp of the group forms P o M and dS for the group's
+// 16 keys x BQ queries and accumulates dV += (P o M)^T dO and dK += dS^T Q
+// over its G-th of the columns.
+//
+// The A operand of dV and dK is the score accumulator (query columns 2 t,
+// 2 t + 1), not the m16n8k8 A layout (columns t, t + 4): the sum over
+// queries does not depend on their order, so A's k = t is read as query
+// 2 t and k = t + 4 as query 2 t + 1, a = (d[0], d[2], d[1], d[3]), and dO's
+// or Q's B fragment reads the same queries, b[r] = dO[8 kk + 2 t + r][col g].
 template <int DMAX>
-__global__ void __launch_bounds__(SIMT_THREADS)
-attn_dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ bias,
-                     const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ dsum, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int Tq, int Tk, int D, int causal,
-                     float scale, Drop drop) {
-    constexpr int NC = DMAX / 16;
-    extern __shared__ float smem[];
-    float* kt = smem;                 // [D][33]
-    float* vt = kt + D * S32;         // [D][33]
-    float* qt = vt + D * S32;         // [D][33]
-    float* dot = qt + D * S32;        // [D][33]
-    float* qs = dot + D * S32;        // [32][D]
-    float* dos = qs + 32 * D;         // [32][D]
-    float* pdt = dos + 32 * D;        // [32 queries][33]
-    float* dst = pdt + 32 * S32;      // [32 queries][33]
-    float2* lse_s = reinterpret_cast<float2*>(dst + 32 * S32);   // [32]
-    float* d_s = reinterpret_cast<float*>(lse_s + 32);           // [32]
+__global__ void __launch_bounds__(TF32_THREADS, dkv_tf32_blocks(DMAX))
+attn_dkv_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap omap,    // dO
+                     const float* __restrict__ bias, const float* __restrict__ lse,
+                     const float* __restrict__ dsum, float* __restrict__ dk, float* __restrict__ dv, int H, int Tq,
+                     int Tk, int D, int causal, float scale, Drop drop) {
+    constexpr int BK = dkv_tf32_keys(DMAX), BQ = DKV_TF32_QUERIES;
+    constexpr int STAGES = dkv_tf32_stages(DMAX), G = dkv_tf32_group(DMAX);
+    constexpr int NG = BK / 16;          // key groups
+    constexpr int NQ = BQ / 8;           // 8-query steps of a tile
+    constexpr int SN = NQ / (G / 2);     // score n-tiles a warp computes
+    constexpr int NJ = DMAX / 8 / G;     // output n-tiles a warp owns, at most
+    constexpr uint32_t KV_BOX = BK * 128, Q_BOX = BQ * 128;
+    constexpr uint32_t KV_BYTES = (DMAX / F32_BOX) * KV_BOX, Q_BYTES = (DMAX / F32_BOX) * Q_BOX;
+    extern __shared__ unsigned char smem_raw[];
+    __shared__ int first_tile;
+    unsigned char* k_smem =
+        smem_raw + ((TILE_ALIGN - (smem_u32(smem_raw) & (TILE_ALIGN - 1))) & (TILE_ALIGN - 1));
+    unsigned char* v_smem = k_smem + KV_BYTES;
+    unsigned char* ring = v_smem + KV_BYTES;                           // stage s: Q, dO
+    float4* swap = reinterpret_cast<float4*>(ring + STAGES * 2 * Q_BYTES);
+    float2* lse_s = reinterpret_cast<float2*>(swap + NG * 2 * NQ * 32);   // [STAGES][BQ]
+    float* d_s = reinterpret_cast<float*>(lse_s + STAGES * BQ);          // [STAGES][BQ]
+    uint32_t* hr_s = reinterpret_cast<uint32_t*>(d_s + STAGES * BQ);     // [STAGES][BQ]
+    const uint32_t kv_bar = smem_u32(hr_s + STAGES * BQ);
+    const uint32_t full_bar = kv_bar + 8, empty_bar = full_bar + 8 * STAGES;
 
-    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-    const int bh = blockIdx.x, b = bh / H;
-    const int kb0 = blockIdx.y * 32;
-    const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
-
-    load_tile_f32(k + koff, kb0, 32, Tk, D, nullptr, kt, S32);
-    load_tile_f32(v + koff, kb0, 32, Tk, D, nullptr, vt, S32);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int kg = warp % NG, rank = warp / NG;
+    const int role = rank / (G / 2), part = rank % (G / 2);   // role 0: S^T, 1: dP^T
+    const int n_kb = (Tk + BK - 1) / BK, BH = gridDim.x / n_kb;
+    const int bh = blockIdx.x % BH, b = bh / H, kb0 = (blockIdx.x / BH) * BK;
+    const int nb = (D + F32_BOX - 1) / F32_BOX;   // the boxes that hold columns < D
+    const int n_qt = (Tq + BQ - 1) / BQ;
+    // Causal, the rows before kb0 see this block's keys only as look-ahead,
+    // whose dS is exactly 0 and whose P, exp(NEG_INF - m - log l), is
+    // exactly 0 too, unless the row's max lies within 128 of NEG_INF (every
+    // key it sees is masked, and each weight is 1/Tk). So the walk starts at
+    // the tile of kb0 or at that of the first such row, if one comes before.
+    const int skip = causal ? min(kb0 / BQ, n_qt) : 0;
+    if (tid == 0) {
+        first_tile = skip;
+        mbar_init(kv_bar, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full_bar + 8 * s, 1 + 32);   // the TMA bytes and warp 0's lanes
+            mbar_init(empty_bar + 8 * s, TF32_THREADS / 32);   // one arrival a warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+        mbar_expect_tx(kv_bar, 2 * nb * KV_BOX);
+        for (int j = 0; j < nb; ++j) {
+            tma_load(smem_u32(k_smem) + j * KV_BOX, &kmap, j * F32_BOX, kb0, bh, kv_bar);
+            tma_load(smem_u32(v_smem) + j * KV_BOX, &vmap, j * F32_BOX, kb0, bh, kv_bar);
+        }
+    }
+    const float* lse_b = lse + (long long)bh * Tq * 2;
+    for (int r = tid; r < min(skip * BQ, Tq); r += TF32_THREADS)
+        if (lse_b[2 * r] < NEG_INF + 128.f) atomicMin(&first_tile, r / BQ);
+    __syncthreads();
+    const int start = first_tile, n_walk = n_qt - start;
 
     const bool dropping = drop.thr != 0u;
     const uint32_t hb = dropping ? dropout_bh_hash(drop.key, bh) : 0u;
-    float key_bias[2], acc_k[2][NC], acc_v[2][NC];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        int key = kb0 + ty + 16 * i;
-        key_bias[i] = key < Tk ? bias[(long long)b * Tk + key] : 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-    }
-
-    for (int q0 = 0; q0 < Tq; q0 += 32) {
-        __syncthreads();
-        load_tile_f32(q + qoff, q0, 32, Tq, D, qs, qt, S32);
-        load_tile_f32(dout + qoff, q0, 32, Tq, D, dos, dot, S32);
-        if (tid < 32) {
-            bool in = q0 + tid < Tq;
-            lse_s[tid] = in ? row_lse_at(lse, (long long)bh * Tq + q0 + tid)
-                            : make_float2(0.f, 0.f);
-            d_s[tid] = in ? dsum[(long long)bh * Tq + q0 + tid] : 0.f;
-        }
-        __syncthreads();
-
-        float s[2][2] = {}, dp[2][2] = {};   // [key i][query j]
-        for (int d = 0; d < D; ++d) {
-            float q0v = qt[d * S32 + tx], q1v = qt[d * S32 + tx + 16];
-            float o0v = dot[d * S32 + tx], o1v = dot[d * S32 + tx + 16];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                float kv = kt[d * S32 + ty + 16 * i], vv = vt[d * S32 + ty + 16 * i];
-                s[i][0] = fmaf(kv, q0v, s[i][0]);
-                s[i][1] = fmaf(kv, q1v, s[i][1]);
-                dp[i][0] = fmaf(vv, o0v, dp[i][0]);
-                dp[i][1] = fmaf(vv, o1v, dp[i][1]);
+    // Warp 0: tile start + i into stage i % STAGES once every warp has
+    // released the stage's last tile. Q and dO come by TMA; (m, log l) and D
+    // by each lane's cp.async (zero-filled at rows >= Tq), which the stage's
+    // full barrier tracks; the dropout row hashes from the lanes, each of
+    // which arrives on that barrier after its stores.
+    const float* dsum_b = dsum + (long long)bh * Tq;
+    auto produce = [&](int i) {
+        const int s = i % STAGES, q0 = (start + i) * BQ;
+        const uint32_t full = full_bar + 8 * s;
+        if (lane == 0) {
+            if (i >= STAGES) mbar_wait(empty_bar + 8 * s, (i / STAGES - 1) & 1);
+            mbar_expect_tx(full, 2 * nb * Q_BOX);
+            const uint32_t dst = smem_u32(ring) + s * 2 * Q_BYTES;
+            for (int j = 0; j < nb; ++j) {
+                tma_load(dst + j * Q_BOX, &qmap, j * F32_BOX, q0, bh, full);
+                tma_load(dst + Q_BYTES + j * Q_BOX, &omap, j * F32_BOX, q0, bh, full);
             }
         }
+        __syncwarp();
+        for (int r = lane; r < BQ; r += 32) {
+            const bool in = q0 + r < Tq;
+            cp_async8(lse_s + s * BQ + r, in ? lse_b + 2 * (q0 + r) : lse_b, in);
+            cp_async4(d_s + s * BQ + r, in ? dsum_b + q0 + r : dsum_b, in);
+            if (dropping) hr_s[s * BQ + r] = dropout_row_hash(hb, q0 + r);
+        }
+        // the barrier's phase waits for this lane's copies too
+        asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" :: "r"(full) : "memory");
+        mbar_arrive(full);
+    };
+    if (warp == 0)
+        for (int i = 0; i < min(n_walk, STAGES - 1); ++i) produce(i);
+
+    const int key0 = kb0 + 16 * kg + g;   // this lane's keys key0 and key0 + 8
+    float key_bias[2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            int col = kb0 + ty + 16 * i;
+    for (int h = 0; h < 2; ++h)
+        key_bias[h] = key0 + 8 * h < Tk ? bias[(long long)b * Tk + key0 + 8 * h] : 0.f;
+    // this warp's output columns: n-tiles [jb, jb + cnt) of the D / 8
+    const int nd = D / 8, per = (nd + G - 1) / G;
+    const int jb = rank * per, cnt = max(0, min(per, nd - jb));
+    float acc_k[NJ][4], acc_v[NJ][4];
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                int qi = tx + 16 * j, row = q0 + qi;
-                float p = recompute_p(s[i][j], scale, key_bias[i], row, col, Tq, Tk,
-                                      causal, lse_s[qi]);
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+    const unsigned char* a_tile = role ? v_smem : k_smem;
+    const int ar = 16 * kg + g;           // A rows ar, ar + 8 of the K or V tile
+    float4* swap_out = swap + ((kg * 2 + role) * NQ + part * SN) * 32 + lane;
+    const float4* swap_s = swap + kg * 2 * NQ * 32 + lane;
+    const float4* swap_p = swap_s + NQ * 32;
+    mbar_wait(kv_bar, 0);
+
+    for (int i = 0; i < n_walk; ++i) {
+        if (warp == 0 && i + STAGES - 1 < n_walk) produce(i + STAGES - 1);
+        const int s = i % STAGES, q0 = (start + i) * BQ;
+        mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
+        const unsigned char* q_tile = ring + s * 2 * Q_BYTES;
+        const unsigned char* o_tile = q_tile + Q_BYTES;
+
+        // S^T = K Q^T or dP^T = V dO^T: 16 keys by this warp's SN n-tiles of
+        // 8 queries, over the 8-column steps that hold columns < D (each step
+        // added in float32, see mma_3xtf32_add: a chained sum's bias would
+        // show where dS = P o (dP - D) cancels, as in a row with one key); a
+        // loop at run time, unrolled by 2 but at D 64, where a step pair
+        // spills at its 128 registers a thread
+        const unsigned char* b_tile = role ? o_tile : q_tile;
+        float mine[SN][4];
+#pragma unroll
+        for (int n = 0; n < SN; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mine[n][e] = 0.f;
+#pragma unroll (DMAX <= 64 ? 1 : 2)
+        for (int kd = 0; kd < D / 8; ++kd) {
+            const int c = 8 * kd + t;
+            uint32_t ab[4], as[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                split_tf32(lds(a_tile, sw_off(ar + 8 * (r & 1), c + 4 * (r >> 1), BK)), ab[r],
+                           as[r]);
+#pragma unroll
+            for (int n = 0; n < SN; ++n) {
+                uint32_t bb[2], bs[2];
+#pragma unroll
+                for (int r = 0; r < 2; ++r)
+                    split_tf32(lds(b_tile, sw_off(8 * (part * SN + n) + g, c + 4 * r, BQ)),
+                               bb[r], bs[r]);
+                mma_3xtf32_add(mine[n], ab, as, bb, bs);
+            }
+        }
+        group_sync(kg, 32 * G);   // the group has read the last tile's scores
+#pragma unroll
+        for (int n = 0; n < SN; ++n)
+            swap_out[n * 32] = make_float4(mine[n][0], mine[n][1], mine[n][2], mine[n][3]);
+        group_sync(kg, 32 * G);   // this tile's S^T and dP^T are whole
+
+        // P o M and dS, 8 queries at a time, as the A operands of
+        // dV += (P o M)^T dO and dK += dS^T Q over this warp's columns, the
+        // query order permuted (see above); column blocks in groups of 4
+        // with no branch inside a group, so that their products interleave
+        const float2* rl = lse_s + s * BQ;
+        const float* rd = d_s + s * BQ;
+        const uint32_t* rh = hr_s + s * BQ;
+#pragma unroll 1
+        for (int kk = 0; kk < NQ; ++kk) {
+            const float4 s4 = swap_s[kk * 32], p4 = swap_p[kk * 32];
+            const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, dpv[4] = {p4.x, p4.y, p4.z, p4.w};
+            float pd[4], ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int qi = 8 * kk + 2 * t + (e & 1), row = q0 + qi;
+                const int key = key0 + 8 * (e >> 1);
+                const float p = recompute_p(sv[e], scale, key_bias[e >> 1], row, key, Tq, Tk,
+                                            causal, rl[qi]);
                 float m = 1.f;
-                if (dropping)
-                    m = dropout_keep(dropout_row_hash(hb, row), col, drop.thr)
-                        ? drop.keep_scale : 0.f;
-                pdt[qi * S32 + ty + 16 * i] = p * m;
-                dst[qi * S32 + ty + 16 * i] = recompute_ds(p, dp[i][j] * m, d_s[qi], row, col,
-                                                           causal);
+                if (dropping) m = dropout_keep(rh[qi], key, drop.thr) ? drop.keep_scale : 0.f;
+                pd[e] = p * m;
+                ds[e] = recompute_ds(p, dpv[e] * m, rd[qi], row, key, causal);
             }
-        }
-        __syncthreads();   // P and dS tiles complete
-
-        for (int qq = 0; qq < 32; ++qq) {
-            float pv[2], sv[2];
+            uint32_t pb[4], ps[4], sb[4], ss[4];
 #pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                pv[i] = pdt[qq * S32 + ty + 16 * i];
-                sv[i] = dst[qq * S32 + ty + 16 * i];
+            for (int r = 0; r < 4; ++r) {
+                const int e = (r >> 1) | ((r & 1) << 1);   // a = (d0, d2, d1, d3)
+                split_tf32(pd[e], pb[r], ps[r]);
+                split_tf32(ds[e], sb[r], ss[r]);
             }
-            const float* orow = dos + qq * D + tx;
-            const float* qrow = qs + qq * D + tx;
+            const int qr = 8 * kk + 2 * t;   // the B rows qr, qr + 1
 #pragma unroll
-            for (int c = 0; c < NC; ++c) {
-                if (tx + 16 * c < D) {
-                    float ov = orow[16 * c], qv = qrow[16 * c];
+            for (int j0 = 0; j0 < NJ; j0 += 4) {
+                if (j0 >= cnt) break;
 #pragma unroll
-                    for (int i = 0; i < 2; ++i) {
-                        acc_v[i][c] = fmaf(pv[i], ov, acc_v[i][c]);
-                        acc_k[i][c] = fmaf(sv[i], qv, acc_k[i][c]);
-                    }
+                for (int j = j0; j < j0 + 4; ++j) {
+                    const int col = 8 * (jb + j) + g;
+                    uint32_t bb[2], bs[2];
+#pragma unroll
+                    for (int r = 0; r < 2; ++r)
+                        split_tf32(lds(o_tile, sw_off(qr + r, col, BQ)), bb[r], bs[r]);
+                    mma_3xtf32_add(acc_v[j], pb, ps, bb, bs);
+#pragma unroll
+                    for (int r = 0; r < 2; ++r)
+                        split_tf32(lds(q_tile, sw_off(qr + r, col, BQ)), bb[r], bs[r]);
+                    mma_3xtf32_add(acc_k[j], sb, ss, bb, bs);
                 }
             }
         }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar + 8 * s);   // this warp is done with it
     }
 
+    float* dkb = dk + (long long)bh * Tk * D;
+    float* dvb = dv + (long long)bh * Tk * D;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        int key = kb0 + ty + 16 * i;
+    for (int h = 0; h < 2; ++h) {
+        const int key = key0 + 8 * h;
         if (key >= Tk) continue;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            int col = tx + 16 * c;
-            if (col < D) {
-                dk[koff + (long long)key * D + col] = acc_k[i][c] * scale;
-                dv[koff + (long long)key * D + col] = acc_v[i][c];
+        for (int j = 0; j < NJ; ++j) {
+            if (j < cnt) {
+                const long long at = (long long)key * D + 8 * (jb + j) + 2 * t;
+                *reinterpret_cast<float2*>(dkb + at) =
+                    make_float2(acc_k[j][2 * h] * scale, acc_k[j][2 * h + 1] * scale);
+                *reinterpret_cast<float2*>(dvb + at) =
+                    make_float2(acc_v[j][2 * h], acc_v[j][2 * h + 1]);
             }
         }
     }
@@ -926,6 +1146,24 @@ bool bad_shape(int B, int H, int Tq, int Tk, int D) {
      : D <= 224 ? attn_dq_simt_kernel<256, 64>                                         \
                 : attn_dq_simt_kernel<256, 32>)
 
+// K4 float32: the tensor maps of its TMA loads (Q, dO in BQ-row boxes, K, V
+// in BK-row boxes), then the launch
+static int launch_dkv_tf32(const float* q, const float* k, const float* v, const float* bias,
+                           const float* dout, const float* lse, const float* dsum, float* dk,
+                           float* dv, int B, int H, int Tq, int Tk, int D, int causal,
+                           float scale, Drop drop, cudaStream_t stream) {
+    const int dmax = dmax_of(D), bk = dkv_tf32_keys(dmax), bq = DKV_TF32_QUERIES;
+    const long long BH = (long long)B * H, blocks = BH * ((Tk + bk - 1) / bk);
+    if (blocks > INT_MAX) return -1;
+    CUtensorMap qmap, kmap, vmap, omap;
+    if (!tensor_map(&qmap, q, (int)BH, Tq, D, bq, 4) || !tensor_map(&omap, dout, (int)BH, Tq, D, bq, 4)
+        || !tensor_map(&kmap, k, (int)BH, Tk, D, bk, 4) || !tensor_map(&vmap, v, (int)BH, Tk, D, bk, 4))
+        return -2;
+    return launch(PICK_D(attn_dkv_tf32_kernel), dim3((unsigned)blocks), TF32_THREADS,
+                  dkv_tf32_smem_bytes(dmax), stream, qmap, kmap, vmap, omap, bias, lse, dsum,
+                  dk, dv, H, Tq, Tk, D, causal, scale, drop);
+}
+
 // K3. dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and dq share it).
 // Contiguous tensors: q, dout, dq (B, H, Tq, D); k, v (B, H, Tk, D); bias
 // (B, Tk), lse (B, H, Tq, 2) as K2 writes it and dsum (B, H, Tq) float32.
@@ -958,7 +1196,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
     return -1;
 }
 
-// K4. As flash_attention_bwd_dq; dk, dv (B, H, Tk, D) in q's dtype.
+// K4. As flash_attention_bwd_dq; dk, dv (B, H, Tk, D) in q's dtype; -2 when
+// the float32 kernel's tensor maps cannot be made (cuTensorMapEncodeTiled
+// not found, or a map it refuses).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const float* bias, const void* dout,
                                        const float* lse, const float* dsum, void* dk,
@@ -968,13 +1208,10 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     if (bad_shape(B, H, Tq, Tk, D)) return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     Drop drop{key, thr, keep_scale};
-    if (dtype == 0) {
-        using T = float;
-        return launch(PICK_D(attn_dkv_simt_kernel), dim3(B * H, (Tk + 31) / 32),
-                      SIMT_THREADS, dkv_simt_smem_bytes(D), s, (const T*)q, (const T*)k,
-                      (const T*)v, bias, (const T*)dout, lse, dsum, (T*)dk, (T*)dv, H, Tq,
-                      Tk, D, causal, scale, drop);
-    }
+    if (dtype == 0)
+        return launch_dkv_tf32((const float*)q, (const float*)k, (const float*)v, bias,
+                               (const float*)dout, lse, dsum, (float*)dk, (float*)dv, B, H,
+                               Tq, Tk, D, causal, scale, drop, s);
     if (dtype == 1) {
         using T = __nv_bfloat16;
         return launch(PICK_D(attn_dkv_mma_kernel), dim3(B * H, (Tk + 63) / 64),
@@ -997,11 +1234,17 @@ extern "C" int flash_attention_bwd_dq_resources(int D, int dtype, int* out) {
                             dq_ktile(D), out);
 }
 
+// The float32 K4 fills two more: {..., queries a tile, keys a block, stages
+// of its query ring}.
 extern "C" int flash_attention_bwd_dkv_resources(int D, int dtype, int* out) {
     if (bad_width(D) || dtype < 0 || dtype > 1) return -1;
-    if (dtype == 0)
-        return kernel_resources(PICK_D(attn_dkv_simt_kernel), SIMT_THREADS,
-                                dkv_simt_smem_bytes(D), 32, out);
+    if (dtype == 0) {
+        const int dmax = dmax_of(D);
+        out[7] = dkv_tf32_keys(dmax);
+        out[8] = dkv_tf32_stages(dmax);
+        return kernel_resources(PICK_D(attn_dkv_tf32_kernel), TF32_THREADS,
+                                dkv_tf32_smem_bytes(dmax), DKV_TF32_QUERIES, out);
+    }
     return kernel_resources(PICK_D(attn_dkv_mma_kernel), MMA_THREADS, dkv_mma_smem_bytes(D),
                             dkv_qtile(D), out);
 }

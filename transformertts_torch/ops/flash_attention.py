@@ -381,10 +381,12 @@ def dq_resources(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
 
 def dkv_resources(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """What K4's kernel for ``dtype`` at head width ``d`` uses on the card:
-    ``build.RESOURCES`` and its query tile."""
+    ``build.RESOURCES`` and its query tile; for the float32 3×TF32 kernel
+    also its keys a block and the stages of its query ring."""
     from transformertts_torch.ops import build
+    extra = ('key_block', 'stages') if dtype == torch.float32 else ()
     return build.resources('flash_attention_bwd', 'flash_attention_bwd_dkv_resources',
-                           (d, _DTYPES[dtype]), build.RESOURCES + ('query_tile',))
+                           (d, _DTYPES[dtype]), build.RESOURCES + ('query_tile',) + extra)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -74,10 +74,10 @@ prints no result):
    tokens) at dropout 0 and 0.1, what K3's and K4's float32 kernels use on
    the card (it fails if D 64 or 256 spills or fits no block), then K3 and
    K4 timed at the decoder's self-attention (beside the plain backward
-   too) and at its last block's (D 256), and K4 at the cross-attention,
-   with dropout 0.1 beside ``scaled_dot_product_attention``'s float32
-   backward and two bounds (on the CUDA cores, and as 3xTF32), each K4
-   time beside the SIMT kernel's that it replaced;
+   too), at its last block's (D 256) and at the cross-attention, with
+   dropout 0.1 beside ``scaled_dot_product_attention``'s float32 backward
+   and two bounds (on the CUDA cores, and as 3xTF32), each K3 and K4 time
+   beside the SIMT kernel's that the 3xTF32 one replaced;
 11. Aligner slice: config/training_config.yaml's published ``aligner_settings``
    (d 256, encoder heads [4, 4, 4, 4], decoder heads [4, 4, 4, 4, 1], float32)
    with weights drawn from a seed, saved as a model dir and loaded back,
@@ -183,9 +183,12 @@ ALIGNER_BWD_LAST_SHAPE = (16, 1, 896, 896, 256)
 ALIGNER_BWD_CROSS_SHAPE = (16, 4, 896, 160, 64)
 ALIGNER_BWD_CASES = [(ALIGNER_BWD_SHAPE, True), (ALIGNER_BWD_LAST_SHAPE, True),
                      (ALIGNER_BWD_CROSS_SHAPE, False), ((16, 4, 160, 160, 64), False)]
-# the float32 K4 that the 3xTF32 kernel replaced, SIMT on the CUDA cores, at
-# ALIGNER_BWD_SHAPE causal, dropout 0.1 (H100 80GB HBM3, 700 W; PERF.md)
+# the float32 K3 and K4 that the 3xTF32 kernels replaced, SIMT on the CUDA
+# cores, causal, dropout 0.1 (H100 80GB HBM3, 700 W; PERF.md): K4 and K3 at
+# ALIGNER_BWD_SHAPE, K3 at ALIGNER_BWD_LAST_SHAPE
 SIMT_K4_F32_MS = 2.1978
+SIMT_K3_F32_MS = 0.8063
+SIMT_K3_F32_D256_MS = 2.1808
 # (B, frames, tokens, r): scripts/measure_train_step.py's three buckets at r = 1,
 # and the largest at r = 10
 ALIGNER_TRAIN_BUCKETS = [(64, 256, 48, 1), (32, 512, 96, 1), (16, 896, 160, 1),
@@ -1228,8 +1231,8 @@ def aligner_backward_phase() -> dict:
     training shapes (``ALIGNER_BWD_CASES``) at dropout 0 and 0.1, what K3's
     and K4's float32 kernels use on the card (it fails if D 64 or 256
     spills or fits no block), then K3 and K4 timed at the decoder's causal
-    self-attention (beside the plain backward too) and its last block's at
-    D 256, and K4 at the cross-attention, each with dropout 0.1 beside
+    self-attention (beside the plain backward too), its last block's at
+    D 256 and the cross-attention, each with dropout 0.1 beside
     ``scaled_dot_product_attention``'s float32 backward and two bounds."""
     fa, _ = _trainable_ops()
     gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
@@ -1261,7 +1264,7 @@ def aligner_backward_phase() -> dict:
                 f'dv {(dv - ref[2]).abs().max().item():.3g}')
             del q, k, v, dout, out, lse, dq, dk, dv, ref_out, ref_lse, ref
     resources = {
-        'K3': _resources('K3', lambda d: fa.dq_resources(d, torch.float32), 'query_rows',
+        'K3': _resources('K3', lambda d: fa.dq_resources(d, torch.float32), 'query_block',
                          'f32', gated=(64, 256)),
         'K4': _resources('K4', lambda d: fa.dkv_resources(d, torch.float32), 'query_tile',
                          'f32', gated=(64, 256))}
@@ -1270,12 +1273,16 @@ def aligner_backward_phase() -> dict:
 
     decoder = _f32_backward_times(ALIGNER_BWD_SHAPE, True, gen, plain=True)
     last = _f32_backward_times(ALIGNER_BWD_LAST_SHAPE, True, gen)
-    cross = _f32_backward_times(ALIGNER_BWD_CROSS_SHAPE, False, gen, names=('K4',))
-    for label, run in (('decoder', decoder), ('last block', last), ('cross', cross)):
-        log(f'f32 K4 {label} {run["shape"]}: {run["K4"]:.4f} ms (the SIMT kernel it replaced: '
-            f'{SIMT_K4_F32_MS} ms at {ALIGNER_BWD_SHAPE} causal, dropout 0.1), '
-            f'{run["bounds"]["K4"]["tf32x3"]["bound_ms"] / run["K4"]:.1%} of its 3xTF32 bound; '
-            f'{run["library_backend"]} f32 backward {run["library_bwd"]:.4f} ms')
+    cross = _f32_backward_times(ALIGNER_BWD_CROSS_SHAPE, False, gen)
+    simt = {('K3', 'decoder'): SIMT_K3_F32_MS, ('K3', 'last block'): SIMT_K3_F32_D256_MS,
+            ('K4', 'decoder'): SIMT_K4_F32_MS}
+    for name in ('K3', 'K4'):
+        for label, run in (('decoder', decoder), ('last block', last), ('cross', cross)):
+            before = (f'the SIMT kernel it replaced: {simt[name, label]} ms'
+                      if (name, label) in simt else 'the SIMT kernel was not timed here')
+            log(f'f32 {name} {label} {run["shape"]}: {run[name]:.4f} ms ({before}), '
+                f'{run["bounds"][name]["tf32x3"]["bound_ms"] / run[name]:.1%} of its 3xTF32 '
+                f'bound; {run["library_backend"]} f32 backward {run["library_bwd"]:.4f} ms')
     return {'errors': errors, 'resources': resources, **decoder, 'd256': last, 'cross': cross}
 
 
@@ -1624,16 +1631,15 @@ def main():
             f32_tf32x3_bound_ms=limit['tf32x3']['bound_ms'],
             f32_resources=aligner_bwd['resources'][label],
             f32_d256_resources=aligner_bwd['resources'][f'{label}_d256'])
-        # the last decoder block's one head of 256, and K4 at the cross-attention
+        # the last decoder block's one head of 256, and the cross-attention
         for key, run in (('d256', aligner_bwd['d256']), ('cross', aligner_bwd['cross'])):
-            if label in run:
-                entry.update({
-                    f'f32_{key}_shape': run['shape'], f'f32_{key}_causal': run['causal'],
-                    f'f32_{key}_ms': run[label],
-                    f'f32_{key}_tf32x3_bound_ms': run['bounds'][label]['tf32x3']['bound_ms'],
-                    f'f32_{key}_library_ms': run['library_bwd'],
-                    f'f32_{key}_library': f'scaled_dot_product_attention '
-                                          f'({run["library_backend"]}), f32 backward'})
+            entry.update({
+                f'f32_{key}_shape': run['shape'], f'f32_{key}_causal': run['causal'],
+                f'f32_{key}_ms': run[label],
+                f'f32_{key}_tf32x3_bound_ms': run['bounds'][label]['tf32x3']['bound_ms'],
+                f'f32_{key}_library_ms': run['library_bwd'],
+                f'f32_{key}_library': f'scaled_dot_product_attention '
+                                      f'({run["library_backend"]}), f32 backward'})
     big, small = log_mel['times'][262144], log_mel['times'][131072]
     kernels.append({
         'name': 'fused_log_mel', 'route': 'cuda',

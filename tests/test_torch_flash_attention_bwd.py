@@ -395,11 +395,12 @@ def test_float32_kernels_at_head_width_256(cuda, shape, causal, rate):
 @pytest.mark.parametrize('d', [64, 128, 192, 256])
 @pytest.mark.parametrize('kernel', ['dq', 'dkv'])
 def test_float32_kernels_fit_and_keep_accumulators_in_registers(cuda, kernel, d):
-    """The float32 K3 (SIMT) and K4 (3xTF32): 256 threads and a block fits
-    an SM at every head width template; at the Aligner's widths, 64 and 256,
-    the accumulators stay in registers; K3 takes 32 query rows a block at D
-    256; K4's tiles and shared memory are those of the source's rules."""
-    from test_torch_flash_attention_bwd_tf32 import BQ, KEYS, STAGES, _smem_bytes
+    """The float32 K3 and K4 (both 3xTF32): 256 threads and a block fits an
+    SM at every head width template; at the Aligner's widths, 64 and 256,
+    the accumulators stay in registers; their tiles and shared memory are
+    those of the source's rules."""
+    from test_torch_flash_attention_bwd_tf32 import (BK, BQ, DQ_QUERIES, DQ_STAGES, KEYS,
+                                                     STAGES, _dq_smem_bytes, _smem_bytes)
     res = (dq_resources if kernel == 'dq' else dkv_resources)(d, torch.float32)
     assert res['threads'] == 256 and res['blocks_per_sm'] >= 1
     assert res['registers'] <= 255
@@ -407,8 +408,9 @@ def test_float32_kernels_fit_and_keep_accumulators_in_registers(cuda, kernel, d)
         assert res['spill_bytes'] == 0
     assert res['dynamic_smem_bytes'] <= SMEM_PER_BLOCK
     if kernel == 'dq':
-        assert res['query_rows'] == (32 if d > 224 else 64)
-        assert res['dynamic_smem_bytes'] == _dq_simt_smem_bytes(d)
+        assert (res['key_tile'], res['query_block'], res['stages']) == \
+            (BK, DQ_QUERIES(d), DQ_STAGES(d))
+        assert res['dynamic_smem_bytes'] == _dq_smem_bytes(d)
     else:
         assert (res['query_tile'], res['key_block'], res['stages']) == \
             (BQ, KEYS(d), STAGES(d))
@@ -429,27 +431,28 @@ def _rule(name: str):
     return lambda d: small if d > limit else large
 
 
-_dq_simt_rows = _rule('dq_simt_rows')   # K3 float32's query rows a block
-
-
-def _dq_simt_smem_bytes(d: int, rows: int = None) -> int:
-    """K3 float32's shared memory: Q^T and dO^T [D][rows + 1], K^T and V^T
-    [D][33], K [32][D], dS^T [32][rows + 1] and the bias [32], in float32."""
-    rows = _dq_simt_rows(d) if rows is None else rows
-    return 4 * (2 * d * (rows + 1) + 2 * d * 33 + 32 * d + 32 * (rows + 1) + 32)
-
-
 def test_float32_dq_layout_fits_a_block_at_every_width():
-    """K3 float32 takes 32 query rows a block where 64 would not fit: at D
-    256, 64 rows need 241,920 B and 32 need 172,288 B, against the 227 KB a
-    block takes; every width it accepts fits. K4's 3xTF32 layout at D 256,
-    206,888 B (K and V of 32 keys, two stages of 32 queries), fits too."""
-    from test_torch_flash_attention_bwd_tf32 import _smem_bytes
-    assert _dq_simt_smem_bytes(256, 64) == 241920 > SMEM_PER_BLOCK
-    assert _dq_simt_smem_bytes(256) == 172288
-    assert _dq_simt_rows(64) == 64 and _dq_simt_rows(256) == 32
-    for d in range(8, 257, 8):
-        assert _dq_simt_smem_bytes(d) <= SMEM_PER_BLOCK, d
+    """K3 float32 (3xTF32) keeps Q and dO of 64 queries a block resident, and
+    of 32 at D 256, where 64 would need 279,848 B against the 232,448 B a
+    block takes. At every head-width template its 8 warps are BQ / 16
+    groups of G, each score warp covers a whole number of 8-key steps, the
+    dQ columns split evenly in groups of 4 n-tiles, and the shared memory
+    fits: 206,120 B at D 256; 99,768 B at D 64, two blocks an SM. K4's
+    3xTF32 layout at D 256, 206,888 B (K and V of 32 keys, two stages of
+    32 queries), fits too."""
+    from test_torch_flash_attention_bwd_tf32 import (BK, DQ_BLOCKS, DQ_QUERIES, DQ_STAGES,
+                                                     _dq_group, _dq_smem_bytes, _smem_bytes)
+    assert _dq_smem_bytes(256, queries=64) == 279848 > SMEM_PER_BLOCK
+    assert _dq_smem_bytes(256) == 206120 and _dq_smem_bytes(64) == 99768
+    assert (DQ_QUERIES(64), BK, DQ_STAGES(64), DQ_BLOCKS(64)) == (64, 32, 3, 2)
+    assert (DQ_QUERIES(256), DQ_STAGES(256), _dq_group(256)) == (32, 2, 4)
+    for dmax in (64, 128, 192, 256):
+        group = _dq_group(dmax)
+        assert (DQ_QUERIES(dmax) // 16) * group == 8 and group in (2, 4)
+        assert (BK // 8) % (group // 2) == 0 and (dmax // 8 // group) % 4 == 0
+        assert _dq_smem_bytes(dmax) <= SMEM_PER_BLOCK, dmax
+    # two blocks an SM at D 64: twice its shared memory within the SM's 228 KB
+    assert 2 * (_dq_smem_bytes(64) + 1024) <= 233472
     assert _smem_bytes(256) == 206888 <= SMEM_PER_BLOCK
 
 

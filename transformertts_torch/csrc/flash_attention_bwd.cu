@@ -31,11 +31,9 @@
 // - bfloat16 runs all products on the tensor cores with mma.sync m16n8k16
 //   (float32 accumulate); P and dS go back to them in bfloat16. Both kernels
 //   have one structure, below.
-// - float32 (the Aligner) runs K4 on the tensor cores as 3xTF32 (one TF32
-//   product would not hold float32 parity; see tf32_tma.cuh), below. K3 is
-//   still a SIMT kernel on the CUDA cores: 256 threads, 64 queries (32 at
-//   D > 224) x 32-key tiles; a causal block stops at its last row's key
-//   tile, since dQ takes nothing from look-ahead keys (dS = 0 there).
+// - float32 (the Aligner) runs both on the tensor cores as 3xTF32 (one TF32
+//   product would not hold float32 parity; see tf32_tma.cuh), K4 below and
+//   K3 as its mirror, with queries and keys exchanged.
 //
 // K4 in bfloat16 (attn_dkv_mma_kernel). At the decoder's training shape,
 // B32 H2 Tq = Tk = 512 D 192, its four products (S, dP, dV, dK) are
@@ -141,6 +139,45 @@
 // 256 is 448 blocks of 32 keys at one an SM (206,888 B), 6,496 pairs; the
 // cross-attention (Tk 160) 192 blocks, one round at two an SM. The grid
 // takes the lowest key blocks (a causal mask's heaviest) first.
+//
+// K3 in float32 (attn_dq_tf32_kernel), K4 f32's mirror. At the same decoder
+// shape its three products keep 9.88 GFLOP; as 3xTF32 that is 0.0599 ms,
+// against 74.1 MB in 0.0221 ms: bound by operations. The SIMT kernel it
+// replaced took 0.8063 ms there and 2.1808 ms at the last block's head of
+// 256 (H100 80GB HBM3, 700 W), for five reasons; what this design does
+// about each:
+// 1. Every product was FMA on the CUDA cores. Now all three run as 3xTF32
+//    on mma.sync m16n8k8: S = Q K^T and dP = dO V^T take Q or dO, resident,
+//    as A and the streamed K or V as B (the forward's S); dS is formed in
+//    the score accumulators and fed as the A operand of dQ += dS K, whose B
+//    fragment reads K in the permuted key order 2 t, 2 t + 1, as K4's
+//    output products read queries. Each 8-wide step's products go to a
+//    fresh accumulator added in float32 (mma_3xtf32_add): dS cancels where
+//    a row sees one key, as in K4.
+// 2. Q and dO were loaded transposed, one element at a time. Now TMA brings
+//    them in once, in 32-column boxes under the 128-byte swizzle, and every
+//    fragment load reads 32 distinct banks.
+// 3. Each 32-key tile was loaded by scalar loads between two barriers. Now
+//    K, V and the bias (by cp.async, tracked by the stage's full barrier)
+//    come through a ring of 32-key tiles (3 stages, 2 at D > 128) under
+//    full/empty mbarriers; warp 0 issues tile i + STAGES - 1 while tile i
+//    computes. A block's query rows are fixed, so each thread holds
+//    (m, log l), D and the dropout row hash of its two rows in registers.
+// 4. dS went through shared memory before dS K. Now it stays in the
+//    registers where it is formed; only the scores cross between the warps
+//    of a group.
+// 5. D 256 had one 256-thread block of 32 query rows an SM (172,288 B).
+//    Now a block is 8 warps in groups that share 16 queries: pairs at
+//    D <= 192 (64 queries a block), quads at D 256 (32). Half the group
+//    computes S and half dP, each over its share of the tile's keys; they
+//    swap through shared memory as K4's groups do, every warp forms dS, and
+//    each accumulates dQ over its 1/G of the columns: 32 floats a thread at
+//    D 256, 16 at D 64, half of K4's.
+// A causal block stops its walk at min(Tk, q0 + BQ): dS is 0 at look-ahead
+// keys, so the stop is exact even for a fully masked row, and the grid
+// takes the highest query blocks (a causal mask's heaviest) first. The
+// decoder's self-attention is 896 blocks of 64 queries at two an SM
+// (99,768 B), the head of 256 448 blocks of 32 at one (206,120 B).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -647,153 +684,6 @@ attn_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores (SIMT), 256 threads as 16 x 16
-// ---------------------------------------------------------------------------
-
-constexpr int SIMT_THREADS = 256;
-constexpr int S32 = 32 + 1;   // stride of transposed 32-wide tiles
-
-// Rows [r0, r0 + n) of a (T, D) float32 matrix: row-major [n][D] (rm) and/or
-// transposed [D][ts] (tr), zero outside.
-__device__ __forceinline__ void load_tile_f32(const float* src, int r0, int n, int T,
-                                              int D, float* rm, float* tr, int ts) {
-    for (int idx = threadIdx.x; idx < n * D; idx += blockDim.x) {
-        int r = idx / D, d = idx % D;
-        float x = r0 + r < T ? src[(long long)(r0 + r) * D + d] : 0.f;
-        if (rm) rm[r * D + d] = x;
-        if (tr) tr[d * ts + r] = x;
-    }
-}
-
-// K3's float32 query rows a block: 64, or 32 at D > 224, where Q^T and dO^T
-// of 64 rows would take the shared memory over 227 KB (241,920 B at D 256)
-constexpr int dq_simt_rows(int d) { return d > 224 ? 32 : 64; }
-
-size_t dq_simt_smem_bytes(int d) {
-    // Q^T, dO^T [D][rows + 1]; K^T, V^T [D][33]; K [32][D]; dS^T [32][rows + 1];
-    // bias [32]
-    const size_t sq = dq_simt_rows(d) + 1;
-    return ((size_t)2 * d * sq + (size_t)2 * d * S32 + (size_t)32 * d + 32 * sq + 32)
-        * sizeof(float);
-}
-
-// K3: grid (B*H, ceil(Tq / ROWS)); a thread owns query rows ty + 16 i
-// (i < ROWS / 16).
-template <int DMAX, int ROWS>
-__global__ void __launch_bounds__(SIMT_THREADS)
-attn_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ bias,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ dsum, float* __restrict__ dq, int H,
-                    int Tq, int Tk, int D, int causal, float scale, Drop drop) {
-    constexpr int NC = DMAX / 16;
-    constexpr int RI = ROWS / 16;
-    constexpr int SQ = ROWS + 1;
-    extern __shared__ float smem[];
-    float* qt = smem;                 // [D][SQ]
-    float* dot = qt + D * SQ;         // [D][SQ]
-    float* kt = dot + D * SQ;         // [D][33]
-    float* vt = kt + D * S32;         // [D][33]
-    float* ks = vt + D * S32;         // [32][D]
-    float* dst = ks + 32 * D;         // [32][SQ]
-    float* bs = dst + 32 * SQ;        // [32]
-
-    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-    const int bh = blockIdx.x, b = bh / H;
-    const int q0 = blockIdx.y * ROWS;
-    const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
-    const float* biasb = bias + (long long)b * Tk;
-
-    load_tile_f32(q + qoff, q0, ROWS, Tq, D, nullptr, qt, SQ);
-    load_tile_f32(dout + qoff, q0, ROWS, Tq, D, nullptr, dot, SQ);
-
-    const bool dropping = drop.thr != 0u;
-    const uint32_t hb = dropping ? dropout_bh_hash(drop.key, bh) : 0u;
-    float2 row_lse[RI];
-    float row_d[RI], acc[RI][NC];
-    uint32_t hr[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-        int row = q0 + ty + 16 * i;
-        row_lse[i] = row < Tq ? row_lse_at(lse, (long long)bh * Tq + row)
-                              : make_float2(0.f, 0.f);
-        row_d[i] = row < Tq ? dsum[(long long)bh * Tq + row] : 0.f;
-        hr[i] = dropping ? dropout_row_hash(hb, row) : 0u;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-    }
-
-    // causal: keys past the block's last row are look-ahead for all its
-    // rows, where dS is 0, fully masked rows included
-    const int k_end = causal ? min(Tk, q0 + ROWS) : Tk;
-    for (int k0 = 0; k0 < k_end; k0 += 32) {
-        __syncthreads();
-        load_tile_f32(k + koff, k0, 32, Tk, D, ks, kt, S32);
-        load_tile_f32(v + koff, k0, 32, Tk, D, nullptr, vt, S32);
-        if (tid < 32) bs[tid] = (k0 + tid < Tk) ? biasb[k0 + tid] : 0.f;
-        __syncthreads();
-
-        float s[RI][2] = {}, dp[RI][2] = {};
-        for (int d = 0; d < D; ++d) {
-            const float* qrow = qt + d * SQ + ty;
-            const float* orow = dot + d * SQ + ty;
-            float k0v = kt[d * S32 + tx], k1v = kt[d * S32 + tx + 16];
-            float v0v = vt[d * S32 + tx], v1v = vt[d * S32 + tx + 16];
-#pragma unroll
-            for (int i = 0; i < RI; ++i) {
-                float qv = qrow[16 * i], ov = orow[16 * i];
-                s[i][0] = fmaf(qv, k0v, s[i][0]);
-                s[i][1] = fmaf(qv, k1v, s[i][1]);
-                dp[i][0] = fmaf(ov, v0v, dp[i][0]);
-                dp[i][1] = fmaf(ov, v1v, dp[i][1]);
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-            int row = q0 + ty + 16 * i;
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                int kk = tx + 16 * j, col = k0 + kk;
-                float p = recompute_p(s[i][j], scale, bs[kk], row, col, Tq, Tk, causal,
-                                      row_lse[i]);
-                float dpd = dp[i][j];
-                if (dropping)
-                    dpd = dropout_keep(hr[i], col, drop.thr) ? dpd * drop.keep_scale : 0.f;
-                dst[kk * SQ + ty + 16 * i] = recompute_ds(p, dpd, row_d[i], row, col, causal);
-            }
-        }
-        __syncthreads();   // dS tile complete
-
-        for (int kk = 0; kk < 32; ++kk) {
-            const float* srow = dst + kk * SQ + ty;
-            const float* krow = ks + kk * D + tx;
-            float sv[RI];
-#pragma unroll
-            for (int i = 0; i < RI; ++i) sv[i] = srow[16 * i];
-#pragma unroll
-            for (int c = 0; c < NC; ++c) {
-                if (tx + 16 * c < D) {
-                    float kv = krow[16 * c];
-#pragma unroll
-                    for (int i = 0; i < RI; ++i) acc[i][c] = fmaf(sv[i], kv, acc[i][c]);
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-        int row = q0 + ty + 16 * i;
-        if (row >= Tq) continue;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            int col = tx + 16 * c;
-            if (col < D) dq[qoff + (long long)row * D + col] = acc[i][c] * scale;
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
 // K4, float32: 3xTF32 on mma.sync m16n8k8, K/V resident, query tiles that
 // TMA brings into a ring (see the note at the top)
 // ---------------------------------------------------------------------------
@@ -1091,6 +981,257 @@ attn_dkv_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
+// K3, float32: 3xTF32 on mma.sync m16n8k8, Q/dO resident, key tiles that TMA
+// brings into a ring (K4 f32 with queries and keys exchanged; see the note
+// at the top)
+// ---------------------------------------------------------------------------
+
+// the design by head-width template: queries a block (BQ), stages of the key
+// ring, blocks an SM (the register cap: 128 a thread for 2), the warps that
+// share 16 queries (G); every width takes 32-key tiles (BK)
+constexpr int DQ_TF32_KEYS = 32;
+__host__ __device__ constexpr int dq_tf32_queries(int d) { return d > 192 ? 32 : 64; }
+__host__ __device__ constexpr int dq_tf32_stages(int d) { return d > 128 ? 2 : 3; }
+__host__ __device__ constexpr int dq_tf32_blocks(int d) { return d > 64 ? 1 : 2; }
+__host__ __device__ constexpr int dq_tf32_group(int d) { return 8 / (dq_tf32_queries(d) / 16); }
+
+// Q and dO; a ring of K, V and the bias; the swap buffer of S and dP (float4
+// [BQ / 16][2][BK / 8][32 lanes]); a full and an empty barrier a stage and
+// Q/dO's; one swizzle pattern of alignment
+__host__ __device__ constexpr size_t dq_tf32_smem_bytes(int d) {
+    return TILE_ALIGN + (size_t)2 * dq_tf32_queries(d) * d * 4
+        + (size_t)dq_tf32_stages(d) * DQ_TF32_KEYS * (2 * d * 4 + 4)
+        + (size_t)dq_tf32_queries(d) * DQ_TF32_KEYS * 8
+        + 8 * (1 + 2 * dq_tf32_stages(d));
+}
+
+// K3 f32: a 1-D grid of B*H x ceil(Tq / BQ) blocks, the highest query blocks
+// (a causal mask's heaviest) first. Warp w belongs to query group
+// w % (BQ / 16), queries q0 + 16 (w % (BQ / 16)) .. + 15, with rank
+// w / (BQ / 16) of G in it: ranks below G / 2 compute S = Q K^T, the others
+// dP = dO V^T, each over BK / (G / 2) of the tile's keys; they swap the
+// scores through shared memory, and every warp of the group forms dS for the
+// group's 16 queries x BK keys and accumulates dQ += dS K over its G-th of
+// the columns. dS is the A operand as it lies in the score accumulators (key
+// columns 2 t, 2 t + 1), read in the permuted key order of K4's output
+// products: a = (d[0], d[2], d[1], d[3]), and K's B fragment reads the same
+// keys, b[r] = K[8 kk + 2 t + r][col g].
+template <int DMAX>
+__global__ void __launch_bounds__(TF32_THREADS, dq_tf32_blocks(DMAX))
+attn_dq_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap,    // dO
+                    const float* __restrict__ bias, const float* __restrict__ lse,
+                    const float* __restrict__ dsum, float* __restrict__ dq, int H, int Tq,
+                    int Tk, int D, int causal, float scale, Drop drop) {
+    constexpr int BQ = dq_tf32_queries(DMAX), BK = DQ_TF32_KEYS;
+    constexpr int STAGES = dq_tf32_stages(DMAX), G = dq_tf32_group(DMAX);
+    constexpr int NG = BQ / 16;          // query groups
+    constexpr int NK = BK / 8;           // 8-key steps of a tile
+    constexpr int SN = NK / (G / 2);     // score n-tiles a warp computes
+    constexpr int NJ = DMAX / 8 / G;     // dQ n-tiles a warp owns, at most
+    constexpr uint32_t Q_BOX = BQ * 128, KV_BOX = BK * 128;
+    constexpr uint32_t Q_BYTES = (DMAX / F32_BOX) * Q_BOX, KV_BYTES = (DMAX / F32_BOX) * KV_BOX;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* q_smem =
+        smem_raw + ((TILE_ALIGN - (smem_u32(smem_raw) & (TILE_ALIGN - 1))) & (TILE_ALIGN - 1));
+    unsigned char* o_smem = q_smem + Q_BYTES;
+    unsigned char* ring = o_smem + Q_BYTES;                             // stage s: K, V
+    float4* swap = reinterpret_cast<float4*>(ring + STAGES * 2 * KV_BYTES);
+    float* bias_s = reinterpret_cast<float*>(swap + NG * 2 * NK * 32);   // [STAGES][BK]
+    const uint32_t qo_bar = smem_u32(bias_s + STAGES * BK);
+    const uint32_t full_bar = qo_bar + 8, empty_bar = full_bar + 8 * STAGES;
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int qg = warp % NG, rank = warp / NG;
+    const int role = rank / (G / 2), part = rank % (G / 2);   // role 0: S, 1: dP
+    const int n_qb = (Tq + BQ - 1) / BQ, BH = gridDim.x / n_qb;
+    const int bh = blockIdx.x % BH, b = bh / H, q0 = (n_qb - 1 - blockIdx.x / BH) * BQ;
+    const int nb = (D + F32_BOX - 1) / F32_BOX;   // the boxes that hold columns < D
+    // Causal, the keys past the block's last row are look-ahead for all its
+    // rows, where dS is exactly 0 (fully masked rows included: their weights
+    // are 1/Tk there, but dS is not), so the walk stops at that row.
+    const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+    const int n_walk = (k_end + BK - 1) / BK;
+    if (tid == 0) {
+        mbar_init(qo_bar, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full_bar + 8 * s, 1 + 32);   // the TMA bytes and warp 0's lanes
+            mbar_init(empty_bar + 8 * s, TF32_THREADS / 32);   // one arrival a warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+        mbar_expect_tx(qo_bar, 2 * nb * Q_BOX);
+        for (int j = 0; j < nb; ++j) {
+            tma_load(smem_u32(q_smem) + j * Q_BOX, &qmap, j * F32_BOX, q0, bh, qo_bar);
+            tma_load(smem_u32(o_smem) + j * Q_BOX, &omap, j * F32_BOX, q0, bh, qo_bar);
+        }
+    }
+
+    // Warp 0: tile i into stage i % STAGES once every warp has released the
+    // stage's last tile. K and V come by TMA; the bias by each lane's
+    // cp.async (zero-filled at keys >= Tk; a 1-D box of it would start
+    // unaligned), which the stage's full barrier tracks.
+    const float* bias_b = bias + (long long)b * Tk;
+    auto produce = [&](int i) {
+        const int s = i % STAGES, k0 = i * BK;
+        const uint32_t full = full_bar + 8 * s;
+        if (lane == 0) {
+            if (i >= STAGES) mbar_wait(empty_bar + 8 * s, (i / STAGES - 1) & 1);
+            mbar_expect_tx(full, 2 * nb * KV_BOX);
+            const uint32_t dst = smem_u32(ring) + s * 2 * KV_BYTES;
+            for (int j = 0; j < nb; ++j) {
+                tma_load(dst + j * KV_BOX, &kmap, j * F32_BOX, k0, bh, full);
+                tma_load(dst + KV_BYTES + j * KV_BOX, &vmap, j * F32_BOX, k0, bh, full);
+            }
+        }
+        __syncwarp();
+        for (int r = lane; r < BK; r += 32) {
+            const bool in = k0 + r < Tk;
+            cp_async4(bias_s + s * BK + r, in ? bias_b + k0 + r : bias_b, in);
+        }
+        // the barrier's phase waits for this lane's copy too
+        asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" :: "r"(full) : "memory");
+        mbar_arrive(full);
+    };
+    if (warp == 0)
+        for (int i = 0; i < min(n_walk, STAGES - 1); ++i) produce(i);
+
+    // this lane's rows row0 and row0 + 8: (m, log l), D and the dropout row
+    // hash stay in registers
+    const int row0 = q0 + 16 * qg + g;
+    const bool dropping = drop.thr != 0u;
+    const uint32_t hb = dropping ? dropout_bh_hash(drop.key, bh) : 0u;
+    float2 row_lse[2];
+    float row_d[2];
+    uint32_t hr[2] = {0u, 0u};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        row_lse[h] = row < Tq ? row_lse_at(lse, (long long)bh * Tq + row)
+                              : make_float2(0.f, 0.f);
+        row_d[h] = row < Tq ? dsum[(long long)bh * Tq + row] : 0.f;
+        if (dropping) hr[h] = dropout_row_hash(hb, row);
+    }
+    // this warp's dQ columns: n-tiles [jb, jb + cnt) of the D / 8
+    const int nd = D / 8, per = (nd + G - 1) / G;
+    const int jb = rank * per, cnt = max(0, min(per, nd - jb));
+    float acc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    const unsigned char* a_tile = role ? o_smem : q_smem;
+    const int ar = 16 * qg + g;           // A rows ar, ar + 8 of the Q or dO tile
+    float4* swap_out = swap + ((qg * 2 + role) * NK + part * SN) * 32 + lane;
+    const float4* swap_s = swap + qg * 2 * NK * 32 + lane;
+    const float4* swap_p = swap_s + NK * 32;
+    mbar_wait(qo_bar, 0);
+
+    for (int i = 0; i < n_walk; ++i) {
+        if (warp == 0 && i + STAGES - 1 < n_walk) produce(i + STAGES - 1);
+        const int s = i % STAGES, k0 = i * BK;
+        mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
+        const unsigned char* k_tile = ring + s * 2 * KV_BYTES;
+        const unsigned char* v_tile = k_tile + KV_BYTES;
+
+        // S = Q K^T or dP = dO V^T: 16 queries by this warp's SN n-tiles of 8
+        // keys, over the 8-column steps that hold columns < D, each step
+        // added in float32 (mma_3xtf32_add); unrolled by 2 but at D 64, as
+        // K4's score loop
+        const unsigned char* b_tile = role ? v_tile : k_tile;
+        float mine[SN][4];
+#pragma unroll
+        for (int n = 0; n < SN; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mine[n][e] = 0.f;
+#pragma unroll (DMAX <= 64 ? 1 : 2)
+        for (int kd = 0; kd < D / 8; ++kd) {
+            const int c = 8 * kd + t;
+            uint32_t ab[4], as[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                split_tf32(lds(a_tile, sw_off(ar + 8 * (r & 1), c + 4 * (r >> 1), BQ)), ab[r],
+                           as[r]);
+#pragma unroll
+            for (int n = 0; n < SN; ++n) {
+                uint32_t bb[2], bs[2];
+#pragma unroll
+                for (int r = 0; r < 2; ++r)
+                    split_tf32(lds(b_tile, sw_off(8 * (part * SN + n) + g, c + 4 * r, BK)),
+                               bb[r], bs[r]);
+                mma_3xtf32_add(mine[n], ab, as, bb, bs);
+            }
+        }
+        group_sync(qg, 32 * G);   // the group has read the last tile's scores
+#pragma unroll
+        for (int n = 0; n < SN; ++n)
+            swap_out[n * 32] = make_float4(mine[n][0], mine[n][1], mine[n][2], mine[n][3]);
+        group_sync(qg, 32 * G);   // this tile's S and dP are whole
+
+        // dS, 8 keys at a time, as the A operand of dQ += dS K over this
+        // warp's columns, the key order permuted (see above); column blocks
+        // in groups of 4 with no branch inside a group, so that their
+        // products interleave
+        const float* bk = bias_s + s * BK;
+#pragma unroll 1
+        for (int kk = 0; kk < NK; ++kk) {
+            const float4 s4 = swap_s[kk * 32], p4 = swap_p[kk * 32];
+            const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, dpv[4] = {p4.x, p4.y, p4.z, p4.w};
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int ki = 8 * kk + 2 * t + (e & 1), key = k0 + ki;
+                const int h = e >> 1, row = row0 + 8 * h;
+                const float p = recompute_p(sv[e], scale, bk[ki], row, key, Tq, Tk, causal,
+                                            row_lse[h]);
+                float dp = dpv[e];
+                if (dropping)
+                    dp = dropout_keep(hr[h], key, drop.thr) ? dp * drop.keep_scale : 0.f;
+                ds[e] = recompute_ds(p, dp, row_d[h], row, key, causal);
+            }
+            uint32_t sb[4], ss[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                split_tf32(ds[(r >> 1) | ((r & 1) << 1)], sb[r], ss[r]);   // (d0, d2, d1, d3)
+            const int kr = 8 * kk + 2 * t;   // the B rows kr, kr + 1
+#pragma unroll
+            for (int j0 = 0; j0 < NJ; j0 += 4) {
+                if (j0 >= cnt) break;
+#pragma unroll
+                for (int j = j0; j < j0 + 4; ++j) {
+                    const int col = 8 * (jb + j) + g;
+                    uint32_t bb[2], bs[2];
+#pragma unroll
+                    for (int r = 0; r < 2; ++r)
+                        split_tf32(lds(k_tile, sw_off(kr + r, col, BK)), bb[r], bs[r]);
+                    mma_3xtf32_add(acc[j], sb, ss, bb, bs);
+                }
+            }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar + 8 * s);   // this warp is done with it
+    }
+
+    float* dqb = dq + (long long)bh * Tq * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= Tq) continue;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            if (j < cnt)
+                *reinterpret_cast<float2*>(dqb + (long long)row * D + 8 * (jb + j) + 2 * t) =
+                    make_float2(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1106,8 +1247,8 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t bytes, cudaStream_t str
 
 // What a kernel uses, as the card reports it: out = {registers a thread,
 // local (spill) bytes a thread, static and dynamic shared memory a block,
-// blocks an SM, threads a block, the tile its width sets (bf16 K3: keys;
-// bf16 K4: queries; f32 K3: query rows a block; f32 K4: queries)}.
+// blocks an SM, threads a block, the tile its width sets (K3: keys a tile;
+// K4: queries a tile)}.
 template <typename Kernel>
 int kernel_resources(Kernel kernel, int threads, size_t bytes, int tile, int* out) {
     int blocks = 0;
@@ -1138,29 +1279,41 @@ bool bad_shape(int B, int H, int Tq, int Tk, int D) {
 #define PICK_D(KERNEL)                                                               \
     (D <= 64 ? KERNEL<64> : D <= 128 ? KERNEL<128> : D <= 192 ? KERNEL<192> : KERNEL<256>)
 
-// the float32 K3 instance for head width D, with its query rows a block
-#define PICK_DQ_SIMT                                                                  \
-    (D <= 64    ? attn_dq_simt_kernel<64, 64>                                          \
-     : D <= 128 ? attn_dq_simt_kernel<128, 64>                                         \
-     : D <= 192 ? attn_dq_simt_kernel<192, 64>                                         \
-     : D <= 224 ? attn_dq_simt_kernel<256, 64>                                         \
-                : attn_dq_simt_kernel<256, 32>)
+// The float32 kernels' TMA sources: Q and dO (maps 0 and 3) in bq-row
+// boxes, K and V (1 and 2) in bk-row boxes
+static bool tf32_maps(CUtensorMap* maps, const float* q, const float* k, const float* v,
+                      const float* dout, int BH, int Tq, int Tk, int D, int bq, int bk) {
+    return tensor_map(&maps[0], q, BH, Tq, D, bq, 4) && tensor_map(&maps[1], k, BH, Tk, D, bk, 4)
+        && tensor_map(&maps[2], v, BH, Tk, D, bk, 4) && tensor_map(&maps[3], dout, BH, Tq, D, bq, 4);
+}
 
-// K4 float32: the tensor maps of its TMA loads (Q, dO in BQ-row boxes, K, V
-// in BK-row boxes), then the launch
+// K3 float32: a block of BQ queries, 32-key tiles
+static int launch_dq_tf32(const float* q, const float* k, const float* v, const float* bias,
+                          const float* dout, const float* lse, const float* dsum, float* dq,
+                          int B, int H, int Tq, int Tk, int D, int causal, float scale,
+                          Drop drop, cudaStream_t stream) {
+    const int dmax = dmax_of(D), bq = dq_tf32_queries(dmax);
+    const long long BH = (long long)B * H, blocks = BH * ((Tq + bq - 1) / bq);
+    if (blocks > INT_MAX) return -1;
+    CUtensorMap m[4];
+    if (!tf32_maps(m, q, k, v, dout, (int)BH, Tq, Tk, D, bq, DQ_TF32_KEYS)) return -2;
+    return launch(PICK_D(attn_dq_tf32_kernel), dim3((unsigned)blocks), TF32_THREADS,
+                  dq_tf32_smem_bytes(dmax), stream, m[0], m[1], m[2], m[3], bias, lse, dsum,
+                  dq, H, Tq, Tk, D, causal, scale, drop);
+}
+
+// K4 float32: a block of BK keys, 32-query tiles
 static int launch_dkv_tf32(const float* q, const float* k, const float* v, const float* bias,
                            const float* dout, const float* lse, const float* dsum, float* dk,
                            float* dv, int B, int H, int Tq, int Tk, int D, int causal,
                            float scale, Drop drop, cudaStream_t stream) {
-    const int dmax = dmax_of(D), bk = dkv_tf32_keys(dmax), bq = DKV_TF32_QUERIES;
+    const int dmax = dmax_of(D), bk = dkv_tf32_keys(dmax);
     const long long BH = (long long)B * H, blocks = BH * ((Tk + bk - 1) / bk);
     if (blocks > INT_MAX) return -1;
-    CUtensorMap qmap, kmap, vmap, omap;
-    if (!tensor_map(&qmap, q, (int)BH, Tq, D, bq, 4) || !tensor_map(&omap, dout, (int)BH, Tq, D, bq, 4)
-        || !tensor_map(&kmap, k, (int)BH, Tk, D, bk, 4) || !tensor_map(&vmap, v, (int)BH, Tk, D, bk, 4))
-        return -2;
+    CUtensorMap m[4];
+    if (!tf32_maps(m, q, k, v, dout, (int)BH, Tq, Tk, D, DKV_TF32_QUERIES, bk)) return -2;
     return launch(PICK_D(attn_dkv_tf32_kernel), dim3((unsigned)blocks), TF32_THREADS,
-                  dkv_tf32_smem_bytes(dmax), stream, qmap, kmap, vmap, omap, bias, lse, dsum,
+                  dkv_tf32_smem_bytes(dmax), stream, m[0], m[1], m[2], m[3], bias, lse, dsum,
                   dk, dv, H, Tq, Tk, D, causal, scale, drop);
 }
 
@@ -1168,7 +1321,9 @@ static int launch_dkv_tf32(const float* q, const float* k, const float* v, const
 // Contiguous tensors: q, dout, dq (B, H, Tq, D); k, v (B, H, Tk, D); bias
 // (B, Tk), lse (B, H, Tq, 2) as K2 writes it and dsum (B, H, Tq) float32.
 // key/thr/keep_scale as in flash_attention_fwd_lse. Returns 0, a cudaError_t,
-// or -1 for arguments the kernels do not take.
+// -1 for arguments the kernels do not take, or -2 when the float32 kernel's
+// tensor maps cannot be made (cuTensorMapEncodeTiled not found, or a map it
+// refuses).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const float* bias, const void* dout,
                                       const float* lse, const float* dsum, void* dq,
@@ -1178,14 +1333,10 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
     if (bad_shape(B, H, Tq, Tk, D)) return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     Drop drop{key, thr, keep_scale};
-    if (dtype == 0) {
-        using T = float;
-        const int rows = dq_simt_rows(D);
-        return launch(PICK_DQ_SIMT, dim3(B * H, (Tq + rows - 1) / rows), SIMT_THREADS,
-                      dq_simt_smem_bytes(D), s, (const T*)q, (const T*)k, (const T*)v,
-                      bias, (const T*)dout, lse, dsum, (T*)dq, H, Tq, Tk, D, causal,
-                      scale, drop);
-    }
+    if (dtype == 0)
+        return launch_dq_tf32((const float*)q, (const float*)k, (const float*)v, bias,
+                              (const float*)dout, lse, dsum, (float*)dq, B, H, Tq, Tk, D,
+                              causal, scale, drop, s);
     if (dtype == 1) {
         using T = __nv_bfloat16;
         return launch(PICK_D(attn_dq_mma_kernel), dim3(B * H, (Tq + 63) / 64), MMA_THREADS,
@@ -1196,9 +1347,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
     return -1;
 }
 
-// K4. As flash_attention_bwd_dq; dk, dv (B, H, Tk, D) in q's dtype; -2 when
-// the float32 kernel's tensor maps cannot be made (cuTensorMapEncodeTiled
-// not found, or a map it refuses).
+// K4. As flash_attention_bwd_dq; dk, dv (B, H, Tk, D) in q's dtype.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const float* bias, const void* dout,
                                        const float* lse, const float* dsum, void* dk,
@@ -1224,12 +1373,17 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
 
 // K3's and K4's resources at head width D for dtype (0 float32, 1 bfloat16;
 // see kernel_resources): 0, a cudaError_t, or -1 for arguments the kernels
-// do not take.
+// do not take. The float32 K3 fills two more: {..., keys a tile, queries a
+// block, stages of its key ring}.
 extern "C" int flash_attention_bwd_dq_resources(int D, int dtype, int* out) {
     if (bad_width(D) || dtype < 0 || dtype > 1) return -1;
-    if (dtype == 0)
-        return kernel_resources(PICK_DQ_SIMT, SIMT_THREADS, dq_simt_smem_bytes(D),
-                                dq_simt_rows(D), out);
+    if (dtype == 0) {
+        const int dmax = dmax_of(D);
+        out[7] = dq_tf32_queries(dmax);
+        out[8] = dq_tf32_stages(dmax);
+        return kernel_resources(PICK_D(attn_dq_tf32_kernel), TF32_THREADS,
+                                dq_tf32_smem_bytes(dmax), DQ_TF32_KEYS, out);
+    }
     return kernel_resources(PICK_D(attn_dq_mma_kernel), MMA_THREADS, dq_mma_smem_bytes(D),
                             dq_ktile(D), out);
 }

@@ -370,13 +370,12 @@ def fwd_resources(d: int, train: bool, dtype: torch.dtype = torch.bfloat16) -> d
 
 def dq_resources(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """What K3's kernel for ``dtype`` at head width ``d`` uses on the card:
-    ``build.RESOURCES`` and, for the bfloat16 ``mma.sync`` kernel, its key
-    tile; for the float32 SIMT kernel, its query rows a block (64, or 32 at
-    d > 224)."""
+    ``build.RESOURCES`` and its key tile; for the float32 3×TF32 kernel
+    also its queries a block and the stages of its key ring."""
     from transformertts_torch.ops import build
-    tile = 'key_tile' if dtype == torch.bfloat16 else 'query_rows'
+    extra = ('query_block', 'stages') if dtype == torch.float32 else ()
     return build.resources('flash_attention_bwd', 'flash_attention_bwd_dq_resources',
-                           (d, _DTYPES[dtype]), build.RESOURCES + (tile,))
+                           (d, _DTYPES[dtype]), build.RESOURCES + ('key_tile',) + extra)
 
 
 def dkv_resources(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:

@@ -31,6 +31,21 @@ prints no result):
    the launch count of K1; the bfloat16 kernel-path mel against a float32
    eager-attention mel under forced durations; the bench workload
    (B64 x 128 tokens -> 768 frames) in mel frames/s; the predict_tts CLI;
+   then the same model dir served through both neural vocoders at their
+   published widths (MelGAN: seungwonpark/melgan's LJSpeech generator;
+   HiFi-GAN: jik876/hifi-gan's V1), each written from a seed as an
+   upstream-layout checkpoint (weight-norm pairs; ``{'model_g': sd}``, and
+   ``{'generator': sd}`` beside a config.json) and loaded by ``load_vocoder``:
+   ``synthesize_lines(..., vocoder=)`` over the test sentences with the
+   launch count of K1, wav lengths of max(1, totals - 1) hops, in
+   sentences/s and seconds of audio a second, then over a full 32-line
+   chunk (the sentences repeated; median of 3, peak memory), beside
+   Griffin-Lim on the same chunk; the generator alone on the sentences'
+   chunk mel and on a 32 x 768-frame one in device ms beside its FLOPs and
+   bound, and in peak memory; the card against the same module on the CPU
+   on one 32-frame masked mel (``VOCODER_CPU_ATOL``), and the same with
+   cuDNN's TF32 on as a reading of the bar's reach; and the predict_tts CLI
+   with ``--vocoder``;
 6. training slice: config/training_config.yaml's published TTS settings
    (bfloat16, dropout 0.1, Adam, the config's learning rate) on a synthetic
    featurized data dir drawn from a seed: ``transformertts_torch.train_tts``
@@ -111,6 +126,7 @@ prints no result):
    bytes, each input read once and each output written once, over
    3.35 TB/s), the card's name and power limit, then the contract line.
 """
+import copy
 import json
 import math
 import shutil
@@ -193,6 +209,21 @@ SIMT_K3_F32_D256_MS = 2.1808
 # and the largest at r = 10
 ALIGNER_TRAIN_BUCKETS = [(64, 256, 48, 1), (32, 512, 96, 1), (16, 896, 160, 1),
                          (16, 896, 160, 10)]
+# the vocoders' output on the card against the same module's on the CPU,
+# float32 with TF32 off, one 32-frame mel across a line's end. Sound readings
+# are 5-8e-7 and cuDNN's TF32 gives 2.4e-4 (HiFi-GAN) and 7.5e-4 (MelGAN)
+# (H100 80GB HBM3, 700 W; PERF.md), so a bar of 1e-5 catches TF32 by 24x
+VOCODER_CPU_ATOL = 1e-5
+VOCODER_CHECK_FRAMES = 32
+# a full serving chunk (synthesize_lines' max_batch), and the frame bucket
+# its generator is also timed at
+VOCODER_CHUNK_LINES = 32
+VOCODER_FULL_FRAMES = 768
+# weight-norm magnitudes, g = gain * |v|, that put freshly drawn weights'
+# waveforms at speech level (peaks of some 0.1-0.6): at gain 1 (the JAX
+# initializer) MelGAN's output peaks near 3e-6, which would make the
+# card-vs-CPU bar and the written PCM16 wav vacuous
+VOCODER_GAINS = {'MelGAN': 1.8, 'HiFi-GAN': 1.6}
 
 PUBLISHED = dict(
     encoder_model_dimension=384, decoder_model_dimension=384, dropout_rate=0.1,
@@ -667,7 +698,223 @@ def slice_phase() -> dict:
     if sr != 22050 or wav.size == 0 or not np.isfinite(wav).all():
         raise AssertionError('predict_tts wrote no readable 22050 Hz wav')
     log(f'predict_tts: wrote {wav.size} samples at {sr} Hz')
-    return {'launches': launches}
+    return {'launches': launches, 'model_dir': model_dir,
+            'sentences_per_s': len(lines) / wall}
+
+
+def upstream_state_dict(vocoder, gain: float) -> dict:
+    """``vocoder``'s weights in the upstream checkpoints' layout: each conv's
+    weight as a weight-norm pair, v the weight and g = gain * |v| (the norm
+    over every axis but the first), so the loader's fold gives gain times
+    the weight."""
+    sd = {}
+    for key, value in vocoder.state_dict().items():
+        if key.endswith('.weight'):
+            prefix = key[:-len('.weight')]
+            sd[f'{prefix}.weight_v'] = value.clone()
+            sd[f'{prefix}.weight_g'] = gain * value.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+        else:
+            sd[key] = value.clone()
+    return sd
+
+
+def generator_flops(vocoder, batch: int, frames: int) -> int:
+    """The FLOPs of one generator call on (batch, frames) mels, from the
+    shapes its convolutions meet (a copy run on the meta device): 2 * in * out
+    * k for each output sample of a Conv1d and each input sample of a
+    ConvTranspose1d. The elementwise passes are not counted."""
+    nn = torch.nn
+    meta = copy.deepcopy(vocoder).to('meta')
+    total = 0
+
+    def count(m, inputs, output):
+        nonlocal total
+        x = inputs[0] if isinstance(m, nn.ConvTranspose1d) else output
+        total += (2 * m.in_channels * m.out_channels // m.groups * m.kernel_size[0]
+                  * x.shape[0] * x.shape[2])
+
+    hooks = [m.register_forward_hook(count) for m in meta.modules()
+             if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d))]
+    meta(torch.empty(batch, frames, vocoder.mel_channels, device='meta'))
+    for h in hooks:
+        h.remove()
+    return total
+
+
+def _write_vocoder_checkpoints(work: Path) -> dict:
+    """Seeded generators at their published widths, saved as the upstream
+    training checkpoints: MelGAN's ``{'model_g': sd}``, HiFi-GAN's
+    ``{'generator': sd}`` beside its config.json."""
+    from transformertts_torch.models.hifigan import V1_CONFIG, HiFiGANVocoder
+    from transformertts_torch.models.melgan import MelGANVocoder
+    gen = torch.Generator().manual_seed(SEED)
+    paths = {'MelGAN': work / 'melgan' / 'melgan.pt', 'HiFi-GAN': work / 'hifigan' / 'g_00000000'}
+    for path in paths.values():
+        path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({'model_g': upstream_state_dict(MelGANVocoder().init_params(gen),
+                                               VOCODER_GAINS['MelGAN'])}, paths['MelGAN'])
+    torch.save({'generator': upstream_state_dict(HiFiGANVocoder().init_params(gen),
+                                                 VOCODER_GAINS['HiFi-GAN'])}, paths['HiFi-GAN'])
+    (paths['HiFi-GAN'].parent / 'config.json').write_text(json.dumps(V1_CONFIG))
+    return paths
+
+
+def _timed_synthesis(model, audio, lines, vocoder=None, repeats: int = 1):
+    """``synthesize_lines`` after one warm-up (cuDNN plans): the wavs of the
+    last call, the median wall seconds over ``repeats`` calls, K1's launches
+    in the last, and the device memory the calls peaked at beyond what was
+    held before (GB)."""
+    from transformertts_torch.models.synthesis import synthesize_lines
+    from transformertts_torch.ops.flash_attention import flash_attention
+    synthesize_lines(model, audio, lines, vocoder=vocoder)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(repeats):
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        wavs = synthesize_lines(model, audio, lines, vocoder=vocoder)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return (wavs, statistics.median(walls), flash_attention.launches,
+            (torch.cuda.max_memory_allocated() - held) / 1e9)
+
+
+def _generator_reading(vocoder, mel, iters: int) -> dict:
+    """One generator on ``mel`` (B, frames, C): device ms, FLOPs, the f32
+    bound, and the memory one call peaks at beyond its input (GB)."""
+    with torch.inference_mode():
+        ms = _time_ms(lambda: vocoder(mel), iters=iters)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vocoder(mel)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    flops = generator_flops(vocoder, *mel.shape[:2])
+    n_params = sum(p.numel() for p in vocoder.parameters())
+    limit = bound(flops, 4 * (mel.numel() + mel.shape[0] * mel.shape[1] * vocoder.hop_length
+                              + n_params), 'f32')
+    return dict(ms=ms, gflop=flops / 1e9, peak_gb=peak_gb, shape=list(mel.shape), **limit)
+
+
+def vocoder_phase(model_dir: Path) -> dict:
+    """The serving slice's model dir through both neural vocoders at their
+    published widths: ``synthesize_lines(vocoder=)`` on the test sentences
+    and on a full 32-line chunk (beside Griffin-Lim on the same chunk), the
+    generator alone in device ms against its bound and in peak memory on
+    the test sentences' chunk mel and on a 32 x 768-frame one, the card
+    against the CPU (and, as a reading of the bar's reach, with cuDNN's
+    TF32 on), the CLI."""
+    from transformertts_torch import predict_tts
+    from transformertts_torch.audio import Audio
+    from transformertts_torch.audio.wav_io import load_wav
+    from transformertts_torch.models import ForwardTransformer
+    from transformertts_torch.models.synthesis import encode_chunk
+    from transformertts_torch.models.vocoder import load_vocoder
+
+    work = WORK / 'vocoders'
+    paths = _write_vocoder_checkpoints(work)
+    model = ForwardTransformer.load_model(model_dir, device=DEVICE)
+    audio = Audio.from_config(model.config)
+    lines = [l for l in (ROOT / 'config' / 'test_sentences.txt').read_text().splitlines()
+             if l.strip()]
+    # a full serving chunk: the test sentences repeated to max_batch rows
+    full = (lines * -(-VOCODER_CHUNK_LINES // len(lines)))[:VOCODER_CHUNK_LINES]
+    # the chunks synthesize_lines builds, and the mels it feeds the vocoder:
+    # the test sentences' at their frame bucket, the full chunk's at 768 frames
+    with torch.inference_mode():
+        enc, use, totals, frames = encode_chunk(
+            model, _batch_like_serving(model, lines), len(lines))
+        mel = model.vocoder_mel(enc['features'], enc['pitch'], use, frames)
+        enc, use, full_totals, full_frames = encode_chunk(
+            model, _batch_like_serving(model, full), len(full))
+        full_mel = model.vocoder_mel(enc['features'], enc['pitch'], use,
+                                     max(full_frames, VOCODER_FULL_FRAMES))
+        del enc, use
+    # 32 frames of the shortest line across its end: speech, then padding
+    start = max(0, min(int(totals[0]) - 1 - VOCODER_CHECK_FRAMES // 2,
+                       frames - VOCODER_CHECK_FRAMES))
+    piece = mel[:1, start:start + VOCODER_CHECK_FRAMES]
+
+    _, gl_wall, _, gl_gb = _timed_synthesis(model, audio, full, repeats=3)
+    log(f'Griffin-Lim on the full chunk ({len(full)} lines): {gl_wall:.4f} s (median of 3), '
+        f'{len(full) / gl_wall:.3f} sentences/s, peak {gl_gb:.3f} GB')
+    record = {'Griffin-Lim': dict(chunk_sentences_per_s=len(full) / gl_wall,
+                                  chunk_peak_gb=gl_gb)}
+    for name, path in paths.items():
+        vocoder = load_vocoder(path, mel_channels=model.config['mel_channels'], device=DEVICE)
+        hop = vocoder.hop_length
+        wavs, wall, launches, _ = _timed_synthesis(model, audio, lines, vocoder)
+        if launches == 0:
+            raise AssertionError(f'synthesize_lines with {name} never launched K1')
+        lengths = [len(w) for w in wavs]
+        expected = sorted(max(1, int(t) - 1) * hop for t in totals[:len(lines)])
+        if sorted(lengths) != expected:
+            raise AssertionError(f'{name} wav lengths {lengths} != max(1, totals-1)*hop '
+                                 f'{expected}')
+        for w in wavs:
+            if not np.isfinite(w).all() or not 0 < np.abs(w).max() <= 1.0:
+                raise AssertionError(f'a {name} wav is not finite, is silent or exceeds 1')
+        audio_s = sum(lengths) / audio.sampling_rate
+        chunk_wavs, chunk_wall, chunk_launches, chunk_gb = _timed_synthesis(
+            model, audio, full, vocoder, repeats=3)
+        chunk_lengths = sorted(len(w) for w in chunk_wavs)
+        if chunk_launches == 0 or chunk_lengths != sorted(
+                max(1, int(t) - 1) * hop for t in full_totals[:len(full)]):
+            raise AssertionError(f'{name} on the full chunk: K1 launches {chunk_launches}, '
+                                 f'wav lengths {chunk_lengths}')
+        chunk_audio_s = sum(len(w) for w in chunk_wavs) / audio.sampling_rate
+
+        small = _generator_reading(vocoder, mel, iters=10)
+        big = _generator_reading(vocoder, full_mel, iters=3)
+        with torch.inference_mode():
+            card = vocoder(piece).cpu()
+            cpu = copy.deepcopy(vocoder).cpu()(piece.cpu())
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                card_tf32 = vocoder(piece).cpu()
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        err = (card - cpu).abs().max().item()
+        err_tf32 = (card_tf32 - cpu).abs().max().item()
+        peak = cpu.abs().max().item()
+        if not err <= VOCODER_CPU_ATOL:
+            raise AssertionError(f'{name} on the card vs the CPU: max |diff| {err} over '
+                                 f'{VOCODER_CPU_ATOL} (CPU peak {peak})')
+
+        out = work / f'out_{path.parent.name}'
+        predict_tts.main(['-p', str(model_dir), '-t', lines[0], '-o', str(out), '--vocoder',
+                          str(path), '--device', DEVICE])
+        wav, sr = load_wav(next((out / 'outputs' / 'custom_text').glob('*.wav')))
+        if sr != 22050 or wav.size == 0 or wav.size % hop or not np.isfinite(wav).all() \
+                or not np.abs(wav).max() > 0:
+            raise AssertionError(f'predict_tts --vocoder ({name}) wrote no readable 22050 Hz '
+                                 f'wav')
+        log(f'{name} ({type(vocoder).__name__}, hop {hop}): synthesize_lines {len(lines)} '
+            f'lines (one call, host noise dominates), wav samples {lengths}, K1 launches '
+            f'{launches}, {wall:.4f} s, {len(lines) / wall:.3f} sentences/s, '
+            f'{audio_s / wall:.2f} s of audio/s; full chunk of {len(full)} lines: '
+            f'{chunk_wall:.4f} s (median of 3), {len(full) / chunk_wall:.3f} sentences/s, '
+            f'{chunk_audio_s / chunk_wall:.2f} s of audio/s, peak {chunk_gb:.3f} GB')
+        for label, g in (('chunk mel', small), ('full-chunk mel', big)):
+            log(f'  generator on the {label} {tuple(g["shape"])}: {g["ms"]:.4f} ms, '
+                f'{g["gflop"]:.2f} GFLOP ({g["gflop"] * 1e3 / (g["shape"][0] * g["shape"][1]):.2f}'
+                f' M a frame), bound {g["bound_ms"]:.4f} ms ({g["bound_by"]}, f32), '
+                f'{g["gflop"] / g["ms"]:.2f} TFLOP/s, peak {g["peak_gb"]:.3f} GB')
+        log(f'  card vs CPU on {tuple(piece.shape)}: max |diff| {err:.3g} (bar '
+            f'{VOCODER_CPU_ATOL}; CPU peak {peak:.3g}); with cuDNN TF32 on {err_tf32:.3g}; '
+            f'predict_tts wrote {wav.size} samples')
+        record[name] = dict(launches=launches, sentences_per_s=len(lines) / wall,
+                            audio_s_per_s=audio_s / wall,
+                            chunk_sentences_per_s=len(full) / chunk_wall,
+                            chunk_audio_s_per_s=chunk_audio_s / chunk_wall,
+                            chunk_peak_gb=chunk_gb, generator_ms=small['ms'],
+                            generator_gflop=small['gflop'], bound_ms=small['bound_ms'],
+                            bound_by=small['bound_by'], full_generator=big,
+                            cpu_max_abs_err=err, cpu_max_abs_err_tf32=err_tf32)
+    return record
 
 
 def _launch_counts(ops) -> list:
@@ -1563,6 +1810,8 @@ def main():
     serving = kernel_phase()
     trainable = trainable_kernel_phase()
     result = slice_phase()
+    vocoders = vocoder_phase(result['model_dir'])
+    gl = vocoders.pop('Griffin-Lim')
     train = training_phase()
     log_mel = log_mel_kernel_phase()
     featurize = featurization_phase()
@@ -1587,6 +1836,7 @@ def main():
         'encoder_ms': times['encoder']['ms'],
         'encoder_plain_ms': times['encoder']['plain_ms'],
         **serving['resources'],
+        'vocoder_serving_launches': {k: v['launches'] for k, v in vocoders.items()},
         'extraction_launches': aligner['launches'],
         **aligner_kernels, 'f32_resources': f32_resources['K1'],
     }]
@@ -1656,6 +1906,16 @@ def main():
     })
     log(f'training: {train["ms_per_step"]:.2f} ms/step, {train["frames_per_s"]:.1f} trained '
         f'mel frames/s at B32 x 512 frames')
+    log('vocoder serving, 4 lines (one call): ' + ', '.join(
+        f'{k} {v["sentences_per_s"]:.3f} sentences/s, {v["audio_s_per_s"]:.2f} s of audio/s'
+        for k, v in vocoders.items()) + f'; Griffin-Lim {result["sentences_per_s"]:.3f} '
+        f'sentences/s')
+    log(f'vocoder serving, full {VOCODER_CHUNK_LINES}-line chunk (median of 3): ' + ', '.join(
+        f'{k} {v["chunk_sentences_per_s"]:.3f} sentences/s, {v["chunk_audio_s_per_s"]:.2f} s '
+        f'of audio/s, generator {v["full_generator"]["ms"]:.4f} ms at '
+        f'{tuple(v["full_generator"]["shape"])} (bound {v["full_generator"]["bound_ms"]:.4f}, '
+        f'peak {v["full_generator"]["peak_gb"]:.3f} GB)' for k, v in vocoders.items())
+        + f'; Griffin-Lim {gl["chunk_sentences_per_s"]:.3f} sentences/s')
     log(f'featurization: {featurize["clips_per_s"]:.2f} clips/s, '
         f'{featurize["audio_s_per_s"]:.2f} s of audio/s')
     log(f'duration extraction: {aligner["clips_per_s"]:.2f} clips/s; predict '

@@ -3,6 +3,8 @@ device. Without a card, a call that names none raises: it never falls back
 to the CPU. With ``device='cpu'`` each runs here, as the other CPU tests
 call them.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -14,8 +16,12 @@ from transformertts_torch import extract_durations
 from transformertts_torch.audio import Audio
 from transformertts_torch.audio.pitch import extract_pitch_np
 from transformertts_torch.models.aligner import Aligner
+from transformertts_torch.models import factory
 from transformertts_torch.models.forward_tts import ForwardTransformer
+from transformertts_torch.models.hifigan import HiFiGANVocoder
+from transformertts_torch.models.melgan import MelGANVocoder
 from transformertts_torch.models.persistence import load_model_dir
+from transformertts_torch.models.vocoder import load_vocoder
 from transformertts_torch.training import checkpointing
 from transformertts_torch.utils.config import TrainingConfigManager
 
@@ -24,6 +30,9 @@ torch.set_num_threads(1)
 AUDIO = Audio.from_config(TINY_CONFIG)
 WAV = (0.1 * np.random.default_rng(0).standard_normal(4096)).astype(np.float32)
 MEL = np.full((12, TINY_CONFIG['mel_channels']), -4.0, np.float32)
+HIFIGAN = {'upsample_rates': [2, 2], 'upsample_kernel_sizes': [4, 4],
+           'upsample_initial_channel': 16, 'resblock_kernel_sizes': [3],
+           'resblock_dilation_sizes': [[1, 3]]}
 
 
 def _extract_durations(d, device=None):
@@ -32,8 +41,9 @@ def _extract_durations(d, device=None):
 
 
 # entry point -> call(dir, **device): the dir holds a ForwardTransformer
-# model dir, an Aligner model dir under aligner/ and a featurized session
-# under stage3/
+# model dir (also as the published model's cache dir under models/), an
+# Aligner model dir under aligner/, a featurized session under stage3/ and
+# vocoder checkpoints under vocoders/
 ENTRY_POINTS = {
     'Aligner.from_config': lambda d, **dev: Aligner.from_config(TINY_ALIGNER, **dev),
     'Aligner.load_model': lambda d, **dev: Aligner.load_model(d / 'aligner', **dev),
@@ -53,13 +63,30 @@ ENTRY_POINTS = {
         MEL, n_iter=1, **dev),
     'pitch.extract_pitch_np': lambda d, **dev: extract_pitch_np(
         WAV, AUDIO.sampling_rate, AUDIO.hop_length, **dev),
+    'factory.tts_ljspeech': lambda d, **dev: factory.tts_ljspeech('1', **dev),
+    'factory.tts_custom': lambda d, **dev: factory.tts_custom(
+        d / 'config.yaml', d / 'model_weights.npz', **dev)[0],
+    'vocoder.load_vocoder': lambda d, **dev: load_vocoder(d / 'vocoders' / 'g_1', **dev),
+    'MelGANVocoder.from_torch_checkpoint': lambda d, **dev: MelGANVocoder.from_torch_checkpoint(
+        d / 'vocoders' / 'melgan.pt', **dev),
+    'HiFiGANVocoder.from_torch_checkpoint': lambda d, **dev:
+        HiFiGANVocoder.from_torch_checkpoint(d / 'vocoders' / 'g_1', HIFIGAN, **dev),
 }
 
 
 @pytest.fixture
-def model_dir(tmp_path):
-    ForwardTransformer(**TINY_CONFIG).init_params(
-        torch.Generator().manual_seed(0)).save_model(tmp_path)
+def model_dir(tmp_path, monkeypatch):
+    model = ForwardTransformer(**TINY_CONFIG).init_params(torch.Generator().manual_seed(0))
+    model.save_model(tmp_path)
+    model.save_model(tmp_path / 'models' / 'bdf06b9_ljspeech_step_1')
+    monkeypatch.setenv('TRANSFORMERTTS_MODELS_DIR', str(tmp_path / 'models'))
+    (tmp_path / 'vocoders').mkdir()
+    gen = torch.Generator().manual_seed(0)
+    torch.save({'model_g': MelGANVocoder(base_channels=16, upsample_rates=(2, 2)).init_params(
+        gen).state_dict()}, tmp_path / 'vocoders' / 'melgan.pt')
+    torch.save({'generator': HiFiGANVocoder(config=HIFIGAN).init_params(gen).state_dict()},
+               tmp_path / 'vocoders' / 'g_1')
+    (tmp_path / 'vocoders' / 'config.json').write_text(json.dumps(HIFIGAN))
     Aligner(**TINY_ALIGNER).init_params(torch.Generator().manual_seed(0)).save_model(
         tmp_path / 'aligner')
     cm = TrainingConfigManager(write_featurized(tmp_path / 'stage3', n_clips=2), aligner=True)

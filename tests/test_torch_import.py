@@ -18,9 +18,13 @@ PORT_MODULES = [
     'transformertts_torch.models',
     'transformertts_torch.models.aligner',
     'transformertts_torch.models.convert',
+    'transformertts_torch.models.factory',
     'transformertts_torch.models.forward_tts',
+    'transformertts_torch.models.hifigan',
+    'transformertts_torch.models.melgan',
     'transformertts_torch.models.persistence',
     'transformertts_torch.models.synthesis',
+    'transformertts_torch.models.vocoder',
     'transformertts_torch.nn.attention',
     'transformertts_torch.nn.blocks',
     'transformertts_torch.nn.core',
@@ -88,6 +92,7 @@ def test_port_imports_no_jax():
     assert 'transformertts_torch.create_training_data' in loaded
     assert 'transformertts_torch.extract_durations' in loaded
     assert 'transformertts_torch.train_aligner' in loaded
+    assert 'transformertts_torch.models.vocoder' in loaded
     assert 'transformertts_torch.training.aligner_trainer' in loaded
     # h5py is imported only when an hdf5-only model dir is read
     assert 'transformertts_torch.models.convert' in loaded and 'h5py' not in loaded

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from transformertts_torch.models.melgan import LOG_MEL_SILENCE
 from transformertts_torch.models.persistence import (load_model_dir, make_config,
                                                      save_model_dir)
 from transformertts_torch.nn import blocks, core, masks
@@ -209,6 +210,26 @@ class ForwardTransformer(nn.Module):
         bleed noise into clip tails and dominate peak normalization."""
         valid = (1.0 - dec['expanded_mask'][:, 0, 0, :].float())[:, :, None]
         return dec['mel'] * valid + silence * (1.0 - valid)
+
+    def vocoder_mel(self, features, pitch, durations, max_frames: int) -> torch.Tensor:
+        """The mel a neural vocoder (``models/melgan.py`` or
+        ``models/hifigan.py``) is fed: the kernel-path decode in float32,
+        padding frames at the vocoders' silence (``LOG_MEL_SILENCE``, not the
+        normalizer's). The vocoders take MelGAN-normalized mels only."""
+        norm = self.config.get('normalizer', 'MelGAN')
+        if norm != 'MelGAN':
+            raise ValueError(f'neural vocoders expect MelGAN-normalized mels, but this model '
+                             f'was trained with normalizer={norm!r}; use the Griffin-Lim path '
+                             f'instead')
+        dec = self.decode_features(features, pitch, durations, max_frames)
+        return self.mask_mel_to_silence(dec, LOG_MEL_SILENCE).float()
+
+    def decode_vocoder(self, vocoder, features, pitch, durations, max_frames: int
+                       ) -> torch.Tensor:
+        """Serving decode through a neural vocoder: ``vocoder_mel`` through
+        ``vocoder`` → peak-normalized (B, frames·hop) waveforms."""
+        return self.peak_normalize(vocoder(self.vocoder_mel(features, pitch, durations,
+                                                            max_frames)))
 
     @staticmethod
     def peak_normalize(wav: torch.Tensor) -> torch.Tensor:

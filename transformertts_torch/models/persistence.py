@@ -121,34 +121,40 @@ def _hdf5_weights(path: Path) -> Path:
     return candidates[0]
 
 
+def read_weights(model, weights) -> Dict[str, np.ndarray]:
+    """A weights file of ``model`` → its JAX ``flatten_params`` dict: an
+    ``.npz``, or hdf5 weights (legacy Keras-2 or Keras-3 layout, read with
+    h5py; a ForwardTransformer's only)."""
+    weights = Path(weights)
+    if weights.suffix == '.npz':
+        with np.load(weights) as data:
+            return {k: data[k] for k in data.files}
+    name = type(model).__name__
+    if name != 'ForwardTransformer':
+        raise NotImplementedError(
+            f'{weights} holds hdf5 weights: the port reads hdf5 ForwardTransformer weights '
+            f'only; the {name} hdf5 reader (the JAX package\'s convert_aligner_weights) is '
+            f'not ported yet')
+    try:
+        import h5py  # noqa: F401  (the readers of models/convert.py use it)
+    except ImportError as e:
+        raise ImportError(f'{weights} holds hdf5 weights: reading them needs h5py') from e
+    from transformertts_torch.models.convert import read_forward_weights
+    template = {k: v.shape for k, v in params_to_jax(model.state_dict()).items()}
+    return read_forward_weights(weights, model.config, template)
+
+
 def load_model_dir(cls, path, device='cuda'):
     """Rebuild a model of type ``cls`` on ``device`` (the card unless the
     caller names another) from a model dir: ``model_weights.npz`` where it
-    is, else its hdf5 weights (legacy Keras-2 or Keras-3 layout, read with
-    h5py). Every weight must fill a parameter and every parameter be filled."""
+    is, else its hdf5 weights (``read_weights``). Every weight must fill a
+    parameter and every parameter be filled."""
     path = Path(path)
     with open(path / 'config.yaml') as f:
         config = yaml.safe_load(f)
     model = cls(**config)
     npz = path / 'model_weights.npz'
-    if npz.exists():
-        with np.load(npz) as data:
-            flat = {k: data[k] for k in data.files}
-    else:
-        weights = _hdf5_weights(path)
-        if cls.__name__ != 'ForwardTransformer':
-            raise NotImplementedError(
-                f'{path} holds hdf5 weights only ({weights.name}): the port reads hdf5 '
-                f'ForwardTransformer weights only; the {cls.__name__} hdf5 reader (the JAX '
-                f'package\'s convert_aligner_weights) is not ported yet')
-        try:
-            import h5py  # noqa: F401  (the readers of models/convert.py use it)
-        except ImportError as e:
-            raise ImportError(f'{path} holds hdf5 weights only ({weights.name}): reading '
-                              f'them needs h5py') from e
-        from transformertts_torch.models.convert import read_forward_weights
-        template = {k: v.shape for k, v in params_to_jax(model.state_dict()).items()}
-        flat = read_forward_weights(weights, model.config, template)
+    flat = read_weights(model, npz if npz.exists() else _hdf5_weights(path))
     model.load_state_dict(params_from_jax(flat), strict=True)
     model.to(device)
     model.step = int(config.get('step', 0))

@@ -5,8 +5,10 @@ Sentences are tokenized on the host, sorted by length and cut into chunks
 of at most ``max_batch``. Each chunk is padded to bucketed shapes (tokens to
 a multiple of 32, batch to a power of two, frames to a multiple of 128) and
 runs on the model's device: the encoder, then the durations come to the host
-to size the frame budget, then one decode → mel inversion → Griffin-Lim
-pass. Each wav is trimmed on the host to its own predicted length, at
+to size the frame budget, then one decode → waveform pass: mel inversion and
+Griffin-Lim, or a neural vocoder (``vocoder=``, ``models/melgan.py`` or
+``models/hifigan.py``) fed mels whose padding frames sit at its silence
+level. Each wav is trimmed on the host to its own predicted length, at
 least one frame, as ``predict`` keeps: an untrained model's durations can
 all round to zero.
 """
@@ -30,14 +32,27 @@ def _batch_bucket(b: int, max_batch: int) -> int:
     return min(p, max_batch)
 
 
+def encode_chunk(model, tok: np.ndarray, n_rows: int, scalar: float = 1.0):
+    """A chunk's padded tokens (its first ``n_rows`` rows real) through the
+    encoder on ``model.device``: (encoder outputs, scaled durations, each
+    row's frame total, the chunk's frame bucket). Row r's wav keeps
+    ``max(1, totals[r] - 1)`` frames."""
+    enc = model.encode(torch.as_tensor(tok, device=model.device))
+    use = model.scaled_durations(enc, scalar)
+    totals = np.round(use.cpu().numpy()).sum(axis=1).astype(int) + 1
+    return enc, use, totals, _round_up(int(totals[:n_rows].max()), FRAME_BUCKET)
+
+
 @torch.inference_mode()
 def synthesize_lines(model, audio, lines: Sequence[str],
                      speed_regulator: float = 1.0, n_iter: int = None,
-                     max_batch: int = 32) -> List[np.ndarray]:
+                     max_batch: int = 32, vocoder=None) -> List[np.ndarray]:
     """Synthesize many sentences on ``model.device``; returns float32 wavs
-    (peak-normalized to [-1, 1]) in input order, each at least ``hop_length``
-    samples long. A line that tokenizes to nothing gives an empty wav, as in
-    the JAX package."""
+    (peak-normalized to [-1, 1]) in input order, each at least one hop
+    (``audio.hop_length``, or ``vocoder.hop_length`` with a vocoder) long. A
+    line that tokenizes to nothing gives an empty wav, as in the JAX
+    package. ``vocoder``: a neural vocoder on the model's device, in place
+    of Griffin-Lim; the model must be MelGAN-normalized."""
     n_iter = n_iter if n_iter is not None else audio.griffin_lim_iters
     silence = audio.silence_level()
     scalar = float(np.float32(1.0 / speed_regulator))
@@ -57,14 +72,17 @@ def synthesize_lines(model, audio, lines: Sequence[str],
         tok = np.zeros((_batch_bucket(len(chunk), max_batch), n_tok), np.int64)
         for row, (_, t) in enumerate(chunk):
             tok[row, :len(t)] = t
-        enc = model.encode(torch.as_tensor(tok, device=model.device))
-        use = model.scaled_durations(enc, scalar)
-        totals = np.round(use.cpu().numpy()).sum(axis=1).astype(int) + 1
-        frames = _round_up(int(totals[:len(chunk)].max()), FRAME_BUCKET)
-        dec = model.decode_features(enc['features'], enc['pitch'], use, frames)
-        mel = model.mask_mel_to_silence(dec, silence)
-        wav = model.peak_normalize(audio.mels_to_waveforms(mel, n_iter)).cpu().numpy()
+        enc, use, totals, frames = encode_chunk(model, tok, len(chunk), scalar)
+        if vocoder is not None:
+            wav = model.decode_vocoder(vocoder, enc['features'], enc['pitch'], use, frames)
+            hop = vocoder.hop_length
+        else:
+            dec = model.decode_features(enc['features'], enc['pitch'], use, frames)
+            mel = model.mask_mel_to_silence(dec, silence)
+            wav = model.peak_normalize(audio.mels_to_waveforms(mel, n_iter))
+            hop = audio.hop_length
+        wav = wav.cpu().numpy()
         for row, (orig_idx, _) in enumerate(chunk):
             frames_kept = max(1, int(totals[row]) - 1)
-            wavs[orig_idx] = wav[row, :frames_kept * audio.hop_length]
+            wavs[orig_idx] = wav[row, :frames_kept * hop]
     return wavs

@@ -1,12 +1,17 @@
-"""Text → mel → Griffin-Lim → wav with the PyTorch port.
+"""Text → mel → Griffin-Lim or a neural vocoder → wav with the PyTorch port.
 
     python -m transformertts_torch.predict_tts -p <model_dir> -t "some text" [-o outdir]
     python -m transformertts_torch.predict_tts -p <model_dir> -f lines.txt [--per_line] [-s]
+    python -m transformertts_torch.predict_tts --step 95000 -f lines.txt --vocoder <ckpt>
 
-The flags are those of the JAX package's ``predict_tts.py``, plus
-``--device`` (default ``cuda``). The model dir is one that either package
-saved. Several lines run batched through ``synthesize_lines`` unless
-``--per_line`` or ``--store_mel`` asks for one ``predict`` per line.
+The flags are those of the JAX package's ``predict_tts.py`` but
+``--data_parallel``, plus ``--device`` (default ``cuda``). The model dir is
+one that either package saved; without ``-p`` the published LJSpeech model
+at ``--step`` is found by ``models/factory.py::tts_ljspeech``. ``--vocoder``
+names a MelGAN or HiFi-GAN torch checkpoint, which then makes the waveform
+in place of Griffin-Lim. Several lines run batched through
+``synthesize_lines`` unless ``--per_line`` or ``--store_mel`` asks for one
+``predict`` per line.
 """
 from argparse import ArgumentParser
 from pathlib import Path
@@ -15,11 +20,14 @@ import numpy as np
 
 from transformertts_torch.audio import Audio
 from transformertts_torch.models import ForwardTransformer
+from transformertts_torch.models.factory import tts_ljspeech
 
 
 def main(argv=None):
     parser = ArgumentParser()
-    parser.add_argument('--path', '-p', dest='path', required=True, type=str)
+    parser.add_argument('--path', '-p', dest='path', default=None, type=str)
+    parser.add_argument('--step', dest='step', default='95000', type=str,
+                        help='step of the published LJSpeech model, used without -p')
     parser.add_argument('--text', '-t', dest='text', default=None, type=str)
     parser.add_argument('--file', '-f', dest='file', default=None, type=str)
     parser.add_argument('--outdir', '-o', dest='outdir', default=None, type=str)
@@ -28,6 +36,10 @@ def main(argv=None):
     parser.add_argument('--single', '-s', dest='single', action='store_true')
     parser.add_argument('--per_line', dest='per_line', action='store_true',
                         help='one predict call per line instead of batched synthesis')
+    parser.add_argument('--vocoder', dest='vocoder', default=None, type=str,
+                        help='a MelGAN (seungwonpark/melgan) or HiFi-GAN (jik876/hifi-gan) '
+                             'torch checkpoint, which makes the waveform in place of '
+                             'Griffin-Lim')
     parser.add_argument('--device', dest='device', default='cuda', type=str)
     args = parser.parse_args(argv)
 
@@ -41,19 +53,29 @@ def main(argv=None):
     else:
         parser.error('specify an input text (-t "some text") or a text file (-f file.txt)')
 
-    print(f'Loading model from {args.path}')
-    model = ForwardTransformer.load_model(args.path, device=args.device)
+    if args.path is not None:
+        print(f'Loading model from {args.path}')
+        model = ForwardTransformer.load_model(args.path, device=args.device)
+    else:
+        model = tts_ljspeech(args.step, device=args.device)
     file_name = (f"{fname}_{model.config.get('data_name', 'custom')}_"
                  f"{model.config.get('git_hash', 'local')}_{model.config.get('step', 0)}")
     outdir = Path(args.outdir or '.') / 'outputs' / fname
     outdir.mkdir(exist_ok=True, parents=True)
     output_path = (outdir / file_name).with_suffix('.wav')
     audio = Audio.from_config(model.config)
+    vocoder = None
+    if args.vocoder is not None:
+        from transformertts_torch.models.vocoder import load_vocoder
+        print(f'Loading vocoder from {args.vocoder}')
+        vocoder = load_vocoder(args.vocoder, mel_channels=model.config['mel_channels'],
+                               device=args.device)
+        print(f'Vocoder: {type(vocoder).__name__}')
     print(f'Output wav under {output_path.parent}')
     lines = [line for line in text if line.strip()]
     if not args.per_line and not args.store_mel and len(lines) > 1:
         from transformertts_torch.models.synthesis import synthesize_lines
-        wavs = synthesize_lines(model, audio, lines)
+        wavs = synthesize_lines(model, audio, lines, vocoder=vocoder)
         if args.single:
             for i, wav in enumerate(wavs):
                 audio.save_wav(wav, (outdir / f'{file_name}_{i}').with_suffix('.wav'))
@@ -67,7 +89,10 @@ def main(argv=None):
                 print(f'Phonemes: "{phons}"')
                 print(f'Tokens: "{tokens}"')
             out = model.predict(tokens, encode=False)
-            wav = audio.reconstruct_waveform(out['mel'], device=args.device)
+            if vocoder is not None:
+                wav = vocoder.inference(out['mel'].T)
+            else:
+                wav = audio.reconstruct_waveform(out['mel'], device=args.device)
             wavs.append(wav)
             if args.store_mel:
                 np.save(str((outdir / f'{file_name}_{i}').with_suffix('.mel')), out['mel'])

@@ -45,7 +45,13 @@ prints no result):
    bound, and in peak memory; the card against the same module on the CPU
    on one 32-frame masked mel (``VOCODER_CPU_ATOL``), and the same with
    cuDNN's TF32 on as a reading of the bar's reach; and the predict_tts CLI
-   with ``--vocoder``;
+   with ``--vocoder``; then the serving warm start: the same model dir in
+   fresh processes (``python -c``, ``serving_child``), for Griffin-Lim and
+   for HiFi-GAN V1 one cold (two ``synthesize_lines`` of the test
+   sentences) and one warmed (``warmup_serving``, which must return 72 and
+   launch K1 576 times, then the same two), the warmed wavs equal to the
+   cold ones; cold and warmed first-request ms, steady ms and the warm-up's
+   seconds printed, not gated;
 6. training slice: config/training_config.yaml's published TTS settings
    (bfloat16, dropout 0.1, Adam, the config's learning rate) on a synthetic
    featurized data dir drawn from a seed: ``transformertts_torch.train_tts``
@@ -64,8 +70,11 @@ prints no result):
    n_fft (registers, spill bytes, shared memory, blocks an SM), then timed
    with the plain version and ``torch.stft`` (cuFFT) at B16 x 262,144 and
    131,072 samples;
-8. featurization slice: ``transformertts_torch.create_training_data`` (its
-   ``main``) over 64 seeded synthetic LJSpeech-like clips of 1-10 s, with
+8. featurization slice: the native VAD mask against the NumPy path on
+   each of 64 seeded synthetic LJSpeech-like clips of 1-10 s (element for
+   element), and ``trim_long_silences`` ms a clip, native and NumPy; then
+   ``transformertts_torch.create_training_data`` (its ``main``, whose
+   workers trim with the native VAD) over the same clips, with
    the K5 launch count, the files it writes, one clip's mel against the
    plain version, the voiced share and the split, in clips/s and seconds of
    audio per second;
@@ -125,6 +134,11 @@ prints no result):
    (for K5 an FFT's) over the card's peak rate for their type and its
    bytes, each input read once and each output written once, over
    3.35 TB/s), the card's name and power limit, then the contract line.
+
+The hdf5 writer and readers (h5py) and ``Audio.display_mel`` (matplotlib)
+do not run here: the card's machine has neither package. The CPU tests hold
+them to the JAX package (``tests/test_torch_interop.py``,
+``tests/test_torch_audio_host.py``).
 """
 import copy
 import json
@@ -242,6 +256,17 @@ PUBLISHED = dict(
     sampling_rate=22050, n_fft=1024, hop_length=256, win_length=1024,
     f_min=0, f_max=8000, normalizer='MelGAN', data_name='ljspeech_random')
 
+# warmup_serving's default menu: 6 batch buckets (32 and the powers of two
+# below it) x 4 token buckets x 3 frame buckets; K1 runs once an encoder
+# block at each (batch, token) and once a decoder block at each combination
+WARM_COMBINATIONS = 6 * 4 * 3
+WARM_LAUNCHES = (len(PUBLISHED['encoder_num_heads']) * 6 * 4
+                 + len(PUBLISHED['decoder_num_heads']) * WARM_COMBINATIONS)
+# the warmed process's wavs against the cold one's: the same kernels on the
+# same shapes, so bit for bit is expected; the card-vs-CPU vocoder bar at most
+WARM_WAV_ATOL = VOCODER_CPU_ATOL
+WARM_CHILD_TIMEOUT_S = 300
+
 
 def log(*args):
     print(*args, flush=True)
@@ -302,6 +327,13 @@ def write_synthetic_data(cm, n_train: int, n_valid: int, frames=(400, 600),
     cm.valid_metadata_path.write_text('\n'.join(lines[n_train:]) + '\n', encoding='utf-8')
 
 
+def tf32_off():
+    """float32 products in float32 on the card (cuBLAS and cuDNN), as every
+    comparison here assumes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available() '
@@ -310,8 +342,7 @@ def device_phase() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32_off()
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}')
     return card
@@ -913,7 +944,98 @@ def vocoder_phase(model_dir: Path) -> dict:
                             chunk_peak_gb=chunk_gb, generator_ms=small['ms'],
                             generator_gflop=small['gflop'], bound_ms=small['bound_ms'],
                             bound_by=small['bound_by'], full_generator=big,
-                            cpu_max_abs_err=err, cpu_max_abs_err_tf32=err_tf32)
+                            cpu_max_abs_err=err, cpu_max_abs_err_tf32=err_tf32,
+                            checkpoint=str(path))
+    return record
+
+
+def serving_child(model_dir: str, out: str, warm: bool, vocoder: str = None):
+    """One fresh serving process (``python -c``, started by ``warm_start_phase``):
+    load the model dir (and ``vocoder``) on the card, with ``warm`` run
+    ``warmup_serving`` (timed, K1's launches counted), then time two
+    ``synthesize_lines`` of the test sentences. Writes the first request's
+    wavs to ``out``.npz and the readings to ``out``.json."""
+    from transformertts_torch.audio import Audio
+    from transformertts_torch.models import ForwardTransformer
+    from transformertts_torch.models.synthesis import synthesize_lines, warmup_serving
+    from transformertts_torch.models.vocoder import load_vocoder
+    from transformertts_torch.ops.flash_attention import flash_attention
+    tf32_off()
+    model = ForwardTransformer.load_model(model_dir, device=DEVICE)
+    audio = Audio.from_config(model.config)
+    if vocoder is not None:
+        vocoder = load_vocoder(vocoder, mel_channels=model.config['mel_channels'],
+                               device=DEVICE)
+    lines = [l for l in (ROOT / 'config' / 'test_sentences.txt').read_text().splitlines()
+             if l.strip()]
+    record = {}
+    if warm:
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        record['combinations'] = warmup_serving(model, audio, vocoder=vocoder)
+        record['warmup_s'] = time.perf_counter() - t0
+        record['warmup_launches'] = flash_attention.launches
+    request_ms, requests = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        requests.append(synthesize_lines(model, audio, lines, vocoder=vocoder))
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    record['request_ms'] = request_ms
+    np.savez(f'{out}.npz', *requests[0])
+    Path(f'{out}.json').write_text(json.dumps(record))
+
+
+def _serving_child(model_dir: Path, out: Path, warm: bool, vocoder: str = None):
+    """``serving_child`` in a fresh process; its wavs and its readings."""
+    args = dict(model_dir=str(model_dir), out=str(out), warm=warm, vocoder=vocoder)
+    code = (f'import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; '
+            f'chip_smoke.serving_child(**{args!r})')
+    subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
+                   timeout=WARM_CHILD_TIMEOUT_S)
+    with np.load(f'{out}.npz') as data:
+        wavs = [data[f'arr_{i}'] for i in range(len(data.files))]
+    return wavs, json.loads(Path(f'{out}.json').read_text())
+
+
+def warm_start_phase(model_dir: Path, hifigan: str, card: str) -> dict:
+    """The serving slice's first request, cold and after ``warmup_serving``:
+    fresh processes, so nothing earlier in this script has warmed them.
+    Griffin-Lim and the seeded HiFi-GAN V1 each get a cold process (two
+    ``synthesize_lines`` of the test sentences) and a warmed one
+    (``warmup_serving``, then the same two). The warm-up must return 72 and
+    launch K1 ``WARM_LAUNCHES`` times, and the warmed wavs must equal the
+    cold ones."""
+    work = WORK / 'warm_start'
+    work.mkdir(parents=True, exist_ok=True)
+    record = {}
+    for name, vocoder in (('Griffin-Lim', None), ('HiFi-GAN', hifigan)):
+        tag = name.lower().replace('-', '')
+        cold_wavs, cold = _serving_child(model_dir, work / f'{tag}_cold', False, vocoder)
+        warm_wavs, warm = _serving_child(model_dir, work / f'{tag}_warm', True, vocoder)
+        if warm['combinations'] != WARM_COMBINATIONS or \
+                warm['warmup_launches'] != WARM_LAUNCHES:
+            raise AssertionError(f'{name}: warmup_serving warmed {warm["combinations"]} '
+                                 f'combinations with {warm["warmup_launches"]} K1 launches, '
+                                 f'not {WARM_COMBINATIONS} and {WARM_LAUNCHES}')
+        if [w.shape for w in warm_wavs] != [w.shape for w in cold_wavs]:
+            raise AssertionError(f'{name}: warmed wav shapes differ from the cold ones')
+        diff = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(warm_wavs, cold_wavs))
+        bitwise = all(np.array_equal(a, b) for a, b in zip(warm_wavs, cold_wavs))
+        if not diff <= WARM_WAV_ATOL:
+            raise AssertionError(f'{name}: warmed wavs differ from the cold ones by {diff}')
+        entry = dict(cold_first_ms=cold['request_ms'][0], warm_first_ms=warm['request_ms'][0],
+                     steady_ms=cold['request_ms'][1], warm_second_ms=warm['request_ms'][1],
+                     warmup_s=warm['warmup_s'], launches=warm['warmup_launches'],
+                     combinations=warm['combinations'], bitwise=bitwise, max_abs_diff=diff)
+        log(f'warm start, {name} ({card}): cold first request {entry["cold_first_ms"]:.1f} ms, '
+            f'warmed first request {entry["warm_first_ms"]:.1f} ms, warm steady '
+            f'{entry["steady_ms"]:.1f} ms (warmed second {entry["warm_second_ms"]:.1f}), '
+            f'warm-up {entry["warmup_s"]:.2f} s for {entry["combinations"]} combinations, '
+            f'K1 launches {entry["launches"]}; warmed wavs equal the cold ones '
+            f'{"bit for bit" if bitwise else f"within {diff:.3g}"}')
+        record[name] = entry
     return record
 
 
@@ -1164,8 +1286,48 @@ def _synthetic_corpus(work: Path, n_clips: int, seed: int = SEED):
     return lengths
 
 
-def featurization_phase() -> dict:
-    """Stage 1 on the card: create_training_data over the synthetic corpus."""
+def native_vad_check(cm, card: str) -> dict:
+    """The native VAD against the NumPy path on every clip of the corpus,
+    as featurization's workers see it before trimming (volume-normalized,
+    cut to whole windows): the masks must agree element for element. Then
+    ``trim_long_silences`` (native) and the NumPy path, ms a clip on the
+    host (the card's machine: ``card``) over the same clips."""
+    from transformertts_torch import native
+    from transformertts_torch.audio import Audio, vad
+    if not native.available():
+        raise AssertionError('the native host library did not build (g++)')
+    audio = Audio.from_config(cm.config)
+    args = (audio.sampling_rate, audio.vad_window_length, audio.vad_moving_average_width,
+            audio.vad_max_silence_length)
+    window = audio.vad_window_length * audio.sampling_rate // 1000
+    wavs = []
+    for path in sorted(cm.wav_directory.glob('*.wav')):
+        y, _ = audio.load_wav(path, preprocess=False)
+        if audio.norm_wav:
+            y = audio.normalize_volume(y, increase_only=True)
+        wavs.append(y[:len(y) - len(y) % window])
+    differ = [i for i, y in enumerate(wavs) if not np.array_equal(
+        native.vad_long_silence_mask(y, *args), vad.long_silence_mask(y, *args))]
+    if differ:
+        raise AssertionError(f'native VAD mask differs from the NumPy path on clips {differ}')
+    t0 = time.perf_counter()
+    kept = sum(len(vad.trim_long_silences(y, *args)) for y in wavs)
+    native_ms = (time.perf_counter() - t0) * 1e3 / len(wavs)
+    t0 = time.perf_counter()
+    kept_numpy = sum(len(y[vad.long_silence_mask(y, *args)]) for y in wavs)
+    numpy_ms = (time.perf_counter() - t0) * 1e3 / len(wavs)
+    if kept != kept_numpy or not 0 < kept < sum(map(len, wavs)):
+        raise AssertionError(f'trimmed clips keep {kept} samples native, {kept_numpy} NumPy, '
+                             f'of {sum(map(len, wavs))}')
+    log(f'native VAD: masks equal the NumPy path on all {len(wavs)} clips; '
+        f'trim_long_silences {native_ms:.3f} ms a clip native, {numpy_ms:.3f} ms NumPy '
+        f'(host of {card}), keeping {kept} of {sum(map(len, wavs))} samples')
+    return {'clips': len(wavs), 'native_ms': native_ms, 'numpy_ms': numpy_ms}
+
+
+def featurization_phase(card: str) -> dict:
+    """Stage 1 on the card: the native VAD against the NumPy path, then
+    create_training_data over the synthetic corpus."""
     from transformertts_torch import create_training_data
     from transformertts_torch.audio import Audio
     from transformertts_torch.ops.fused_log_mel import fused_log_mel, fused_log_mel_plain
@@ -1177,6 +1339,7 @@ def featurization_phase() -> dict:
     n_test = 8
     cfg = write_session(work, data_overrides={'n_test': n_test})
     cm = TrainingConfigManager(cfg, aligner=True)
+    vad_record = native_vad_check(cm, card)
 
     fused_log_mel.launches = 0
     t0 = time.perf_counter()
@@ -1230,7 +1393,7 @@ def featurization_phase() -> dict:
         f's, of it {stats["featurize_batch_s"]:.2f} s in featurize_batch (padding, K5, '
         f'YIN, saving) and the rest waiting on the host workers')
     return {'launches': launches, 'clips_per_s': kept / wall,
-            'audio_s_per_s': seconds / wall, 'config': cfg}
+            'audio_s_per_s': seconds / wall, 'config': cfg, 'vad': vad_record}
 
 
 def _aligner_qkv(shape, dtype, gen, step):
@@ -1812,9 +1975,10 @@ def main():
     result = slice_phase()
     vocoders = vocoder_phase(result['model_dir'])
     gl = vocoders.pop('Griffin-Lim')
+    warm_start = warm_start_phase(result['model_dir'], vocoders['HiFi-GAN']['checkpoint'], card)
     train = training_phase()
     log_mel = log_mel_kernel_phase()
-    featurize = featurization_phase()
+    featurize = featurization_phase(card)
     aligner_kernels = aligner_kernel_phase()
     k2_f32 = aligner_kernels.pop('k2')
     f32_resources = aligner_kernels.pop('f32_resources')
@@ -1837,6 +2001,7 @@ def main():
         'encoder_plain_ms': times['encoder']['plain_ms'],
         **serving['resources'],
         'vocoder_serving_launches': {k: v['launches'] for k, v in vocoders.items()},
+        'warmup_serving_launches': {k: v['launches'] for k, v in warm_start.items()},
         'extraction_launches': aligner['launches'],
         **aligner_kernels, 'f32_resources': f32_resources['K1'],
     }]
@@ -1916,8 +2081,14 @@ def main():
         f'{tuple(v["full_generator"]["shape"])} (bound {v["full_generator"]["bound_ms"]:.4f}, '
         f'peak {v["full_generator"]["peak_gb"]:.3f} GB)' for k, v in vocoders.items())
         + f'; Griffin-Lim {gl["chunk_sentences_per_s"]:.3f} sentences/s')
+    log(f'serving warm start ({card}): ' + '; '.join(
+        f'{k} first request {v["cold_first_ms"]:.1f} ms cold, {v["warm_first_ms"]:.1f} ms '
+        f'warmed, {v["steady_ms"]:.1f} ms steady, warm-up {v["warmup_s"]:.2f} s'
+        for k, v in warm_start.items()))
     log(f'featurization: {featurize["clips_per_s"]:.2f} clips/s, '
-        f'{featurize["audio_s_per_s"]:.2f} s of audio/s')
+        f'{featurize["audio_s_per_s"]:.2f} s of audio/s; native VAD '
+        f'{featurize["vad"]["native_ms"]:.3f} ms a clip, NumPy {featurize["vad"]["numpy_ms"]:.3f} '
+        f'(host of {card})')
     log(f'duration extraction: {aligner["clips_per_s"]:.2f} clips/s; predict '
         f'{aligner["steps_per_s"]:.1f} decode steps/s')
     log('Aligner training: ' + ', '.join(f'{k} {v:.2f} ms/step' for k, v

@@ -14,7 +14,8 @@ the same numpy inputs go through both, in float32 at dropout off:
 - ``predict`` over a bounded number of steps (decoder heads [2, 2] and the
   published-style mixed [2, 1]): mel to atol 1e-4, the same step count, and
   the cached decode against the full teacher-forced decoder;
-- model dirs and JAX-layout training checkpoints both ways, bit for bit.
+- model dirs (npz, and the JAX package's hdf5 export) and JAX-layout
+  training checkpoints both ways, bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -334,10 +335,14 @@ def test_jax_checkpoint_restores_into_port_and_back(aligners, tmp_path):
 
 
 def test_hdf5_only_aligner_dir_names_the_missing_reader(aligners, tmp_path):
-    """An Aligner dir with hdf5 weights only raises an error that names the
-    Aligner hdf5 reader the port lacks, before any hdf5 is read."""
+    """An Aligner dir with hdf5 weights only, the JAX package's legacy
+    Keras-2 export, loads into the port bit for bit."""
     jm, _ = aligners
-    jm.save_model(tmp_path)
-    (tmp_path / 'model_weights.npz').rename(tmp_path / 'model_weights.hdf5')
-    with pytest.raises(NotImplementedError, match='Aligner hdf5 reader'):
-        TAligner.load_model(tmp_path, device='cpu')
+    jm.save_model(tmp_path, weights_format='hdf5')
+    assert not (tmp_path / 'model_weights.npz').exists()
+    tm = TAligner.load_model(tmp_path, device='cpu')
+    flat = flatten_params(jax.device_get(jm.params))
+    port = params_to_jax(tm.state_dict())
+    assert sorted(port) == sorted(flat)
+    for key in flat:
+        np.testing.assert_array_equal(port[key], np.asarray(flat[key]))

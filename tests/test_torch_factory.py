@@ -112,13 +112,14 @@ def test_tts_custom_reads_a_config_and_a_weights_file(tmp_path, jax_model, weigh
 
 
 def test_aligner_custom_reads_npz_and_names_the_missing_hdf5_reader(tmp_path):
+    """``aligner_custom`` reads the JAX Aligner's weights from its npz and from
+    its hdf5 export, the same bits both ways."""
     jm = JAligner(**TINY_ALIGNER)
     jm.init_params(jax.random.PRNGKey(0))
-    jm.save_model(tmp_path)
-    model, _ = factory.aligner_custom(tmp_path / 'config.yaml', tmp_path / 'model_weights.npz',
-                                      device='cpu')
-    _assert_weights(model, jm)
-    (tmp_path / 'model_weights.npz').rename(tmp_path / 'model_weights.hdf5')
-    with pytest.raises(NotImplementedError, match='Aligner hdf5 reader'):
-        factory.aligner_custom(tmp_path / 'config.yaml', tmp_path / 'model_weights.hdf5',
-                               device='cpu')
+    jm.save_model(tmp_path, weights_format='both')
+    for weights in ('model_weights.npz', 'model_weights.hdf5'):
+        model, config = factory.aligner_custom(tmp_path / 'config.yaml', tmp_path / weights,
+                                               device='cpu')
+        assert config['decoder_num_heads'] == TINY_ALIGNER['decoder_num_heads']
+        assert model.device.type == 'cpu'
+        _assert_weights(model, jm)

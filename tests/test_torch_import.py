@@ -72,6 +72,7 @@ PORT_MODULES = [
     'transformertts_torch.utils.scheduling',
     'transformertts_torch.utils.scripts_utils',
     'transformertts_torch.utils.spectrogram_ops',
+    'transformertts_torch.verify_checkpoint',
     'chip_smoke',
 ]
 
@@ -94,8 +95,11 @@ def test_port_imports_no_jax():
     assert 'transformertts_torch.train_aligner' in loaded
     assert 'transformertts_torch.models.vocoder' in loaded
     assert 'transformertts_torch.training.aligner_trainer' in loaded
-    # h5py is imported only when an hdf5-only model dir is read
+    # h5py is imported only when hdf5 weights are read or written, matplotlib
+    # only when a plot is drawn: the card's machine has neither
     assert 'transformertts_torch.models.convert' in loaded and 'h5py' not in loaded
+    assert 'transformertts_torch.verify_checkpoint' in loaded
+    assert not [m for m in loaded if m.split('.')[0] == 'matplotlib']
 
 
 def test_chip_smoke_imports_nothing_of_jax_itself():

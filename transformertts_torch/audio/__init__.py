@@ -3,7 +3,8 @@ the MelGAN and WaveRNN normalizers; featurization (mel spectrograms, the
 fused log-mel of centre-padded batches, YIN pitch) on the card unless the
 caller names another device; wav loading with the offline cleanup (volume normalization, VAD
 silence trimming) on the host; mel → waveform by mel inversion and
-Griffin-Lim; wav output.
+Griffin-Lim; wav output; a mel plot (``display_mel``, which needs matplotlib,
+imported only there).
 """
 import sys
 
@@ -214,3 +215,24 @@ class Audio:
 
     def save_wav(self, y, wav_path):
         wav_io.save_wav(np.asarray(y), wav_path, self.sampling_rate)
+
+    # --- plots -----------------------------------------------------------------
+
+    def display_mel(self, mel, is_normal: bool = True):
+        """A mel, (frames, mel_channels) or (mel_channels, frames), normalized
+        unless ``is_normal`` is False, as a matplotlib Figure of its dB image
+        against its peak, mel bins up."""
+        import matplotlib
+        matplotlib.use('Agg')
+        from matplotlib import pyplot as plt
+        mel = np.asarray(mel)
+        if is_normal:
+            mel = self.normalizer.denormalize(mel)
+        if mel.shape[0] != self.mel_channels:
+            mel = mel.T
+        f = plt.figure(figsize=(10, 4))
+        s_db = 20.0 * np.log10(np.maximum(mel, 1e-10) / np.max(mel))
+        plt.imshow(s_db, origin='lower', aspect='auto', cmap='magma')
+        plt.xlabel('frames')
+        plt.ylabel('mel bins')
+        return f

@@ -20,12 +20,16 @@ level-independent behavior on structured noise:
   gaps the energy gate alone must conservatively keep.
 
 Clips with no anchors at all (no harmonic speech found — e.g. pure noise
-fixtures) keep the pure energy-gate behavior. Offline preprocessing only,
-pure NumPy: the port's copy of ``transformertts_tpu/audio/vad.py`` without
-its native branch (which that module documents as byte-identical to this
-path).
+fixtures) keep the pure energy-gate behavior. Offline preprocessing only:
+the port's copy of ``transformertts_tpu/audio/vad.py``.
+``trim_long_silences`` takes the native C++ mask
+(``native.vad_long_silence_mask``) where the native library is built, as the
+JAX package does, and ``long_silence_mask``, the NumPy path, where it is not;
+the two give the same mask.
 """
 import numpy as np
+
+from transformertts_torch import native
 
 # Speech-anchor classifier constants. Margins measured on the structured
 # fixtures in scripts/measure_dsp_fidelity.py (see BASELINE.md): voiced
@@ -170,22 +174,36 @@ def detect_voice_flags(wav: np.ndarray, sampling_rate: int,
     return flags
 
 
-def trim_long_silences(wav: np.ndarray, sampling_rate: int, window_ms: int,
-                       moving_average_width: int, max_silence_length: int,
-                       energy_threshold_db: float = -48.0) -> np.ndarray:
-    """Remove long internal silences; mirrors the reference smoothing chain
-    (moving-average of voice flags → round → dilation → sample mask)."""
+def long_silence_mask(wav: np.ndarray, sampling_rate: int, window_ms: int,
+                      moving_average_width: int, max_silence_length: int,
+                      energy_threshold_db: float = -48.0) -> np.ndarray:
+    """Per-sample keep mask of a wav of whole windows, the NumPy path of
+    ``trim_long_silences``: the reference smoothing chain (moving average of
+    the voice flags → round → dilation → repeat to samples)."""
     samples_per_window = (window_ms * sampling_rate) // 1000
-    wav = wav[:len(wav) - (len(wav) % samples_per_window)]
-    if len(wav) == 0:
-        return wav
     voice_flags = detect_voice_flags(wav, sampling_rate, window_ms,
                                      energy_threshold_db).astype(float)
     audio_mask = _moving_average(voice_flags, moving_average_width)
     audio_mask = np.round(audio_mask).astype(bool)
     audio_mask = _binary_dilation(audio_mask, max_silence_length + 1)
-    audio_mask = np.repeat(audio_mask, samples_per_window)
-    return wav[audio_mask]
+    return np.repeat(audio_mask, samples_per_window)
+
+
+def trim_long_silences(wav: np.ndarray, sampling_rate: int, window_ms: int,
+                       moving_average_width: int, max_silence_length: int,
+                       energy_threshold_db: float = -48.0) -> np.ndarray:
+    """Cut the wav to whole windows and remove its long internal silences,
+    by the native mask where the native library is built, else by
+    ``long_silence_mask``."""
+    samples_per_window = (window_ms * sampling_rate) // 1000
+    wav = wav[:len(wav) - (len(wav) % samples_per_window)]
+    if len(wav) == 0:
+        return wav
+    args = (sampling_rate, window_ms, moving_average_width, max_silence_length,
+            energy_threshold_db)
+    if native.available():
+        return wav[native.vad_long_silence_mask(wav, *args)]
+    return wav[long_silence_mask(wav, *args)]
 
 
 def trim_silence_top_db(wav: np.ndarray, top_db: float, frame_length: int = 256,

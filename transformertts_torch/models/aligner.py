@@ -281,10 +281,11 @@ class Aligner(nn.Module):
 
     # ----------------------------------------------------------- persistence
 
-    def save_model(self, path):
-        """Self-describing dir: config.yaml + model_weights.npz, readable by
-        the JAX package's ``Aligner.load_model``."""
-        save_model_dir(self, path)
+    def save_model(self, path, weights_format: str = 'npz'):
+        """Self-describing dir: config.yaml + weights, readable by the JAX
+        package's ``Aligner.load_model``. weights_format: 'npz', 'hdf5' (the
+        legacy Keras-2 layout; needs h5py) or 'both'."""
+        save_model_dir(self, path, weights_format)
 
     @classmethod
     def load_model(cls, path, device='cuda') -> 'Aligner':

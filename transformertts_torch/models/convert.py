@@ -1,20 +1,23 @@
-"""Reference (TF/Keras) hdf5 weights → the JAX package's flat parameter
-dict, for the ForwardTransformer: the port's own copy of what loading an
-hdf5-only model dir needs from ``transformertts_tpu/models/convert.py``
-(numpy only; h5py is imported by the readers, when a file is read).
+"""Reference (TF/Keras) hdf5 weights ↔ the port's models, both ways: the
+port's own copy of ``transformertts_tpu/models/convert.py`` (h5py is
+imported by the readers and the writer, when a file is read or written, so
+an npz model dir never needs it).
 
-Two on-disk layouts are handled:
+Two on-disk layouts are read, for the ForwardTransformer and the Aligner:
 - **Keras 3** ``.weights.h5``: nested groups by attribute path with ``vars/N``
-  leaves (``convert_forward_weights``);
+  leaves (``convert_forward_weights``, ``convert_aligner_weights``);
 - **legacy Keras 2 hdf5** (the published ``bdf06b9_ljspeech`` artifacts and
-  the JAX package's ``save_model(weights_format='hdf5')``): top-level groups
+  either package's ``save_model(weights_format='hdf5')``): top-level groups
   per layer with ``weight_names`` attrs, mapped by creation order, names and
   shapes (``convert_legacy_weights``).
 
-``read_forward_weights`` picks the layout from the file, as the JAX
+``read_reference_weights`` picks the layout from the file, as the JAX
 package's ``load_reference_weights_into`` does, and returns the
 ``flatten_params`` dict (``'/'``-joined paths) that
 ``persistence.params_from_jax`` turns into a state dict.
+``write_legacy_h5`` writes the legacy layout from a model's state dict, so
+the JAX package and the reference's TF ``load_weights`` read what the port
+trained.
 
 Weight-layout facts the mapping relies on (reference model/layers.py):
 Dense = (kernel(in,out), bias); Conv1D = (kernel(w,in,out), bias); LayerNorm =
@@ -22,9 +25,14 @@ Dense = (kernel(in,out), bias); Conv1D = (kernel(w,in,out), bias); LayerNorm =
 -1)``, so its kernel is (2·d, d); ``pos_encoding_scalar`` may be absent
 (untracked in Keras 3) and defaults to 1.
 """
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
+import yaml
+
+from transformertts_torch.models.persistence import (hdf5_weights, params_from_jax,
+                                                     params_to_jax)
 
 
 # --------------------------------------------------------------- h5 readers
@@ -193,6 +201,60 @@ def convert_forward_weights(flat: Dict[str, np.ndarray]) -> dict:
     }
 
 
+def _cross_attention_blocks(flat, prefix):
+    """Reference CrossAttentionBlocks → {ln, pos_encoding_scalar, block_i}
+    (layers.py:381-417: ``CADB`` list + ``layernorm``)."""
+    sub = _sub(flat, prefix)
+    p = {'ln': _ln(sub, 'layernorm/'),
+         'pos_encoding_scalar': np.float32(
+             sub.get('pos_encoding_scalar', 1.0))}
+
+    def cadb_block(src, g):
+        # CrossAttentionResnorm's LN is named ``layernorm``
+        # (reference layers.py:313-328), unlike the self-attention resnorm
+        return {'sarn': _sarn(src, f'{g}sarn/'),
+                'carn': {'mha': _mha(src, f'{g}carn/mha/'),
+                         'ln': _ln(src, f'{g}carn/layernorm/')},
+                'ffn': _ffn(src, f'{g}ffn/')}
+
+    cadb = _sub(sub, 'CADB/')
+    groups = _sorted_groups(cadb)
+    for i, g in enumerate(groups):
+        p[f'block_{i}'] = cadb_block(cadb, f'{g}/')
+    # the final block lives in its own attribute with no intermediate
+    # group (layers.py:399-403)
+    last = _sub(sub, 'last_CADB/')
+    if last:
+        p[f'block_{len(groups)}'] = cadb_block(last, '')
+    return p
+
+
+def convert_aligner_weights(flat: Dict[str, np.ndarray]) -> dict:
+    """Keras-3-layout flat weights → Aligner param pytree."""
+    layers = _sub(flat, 'layers/')
+    dense_groups = [g for g in _sorted_groups(layers) if g.startswith('dense')]
+    # final_proj_mel is the only loose Dense in the Aligner
+    if any(k.startswith('final_proj_mel/') for k in flat):
+        final_proj = _dense(flat, 'final_proj_mel/')
+    else:
+        final_proj = _dense(layers, f'{dense_groups[0]}/')
+    prenet_prefix = ('decoder_prenet/' if any(
+        k.startswith('decoder_prenet/') for k in flat) else 'DecoderPrenet/')
+    postnet_prefix = ('decoder_postnet/' if any(
+        k.startswith('decoder_postnet/') for k in flat) else 'Postnet/')
+    return {
+        'encoder_prenet': {'table': flat['encoder_prenet/vars/0']},
+        'encoder': _self_attention_blocks(flat, 'encoder/'),
+        'decoder': _cross_attention_blocks(flat, 'decoder/'),
+        'decoder_prenet': {'d1': _dense(flat, f'{prenet_prefix}d1/'),
+                           'd2': _dense(flat, f'{prenet_prefix}d2/')},
+        'final_proj_mel': final_proj,
+        'decoder_postnet': {
+            'stop_linear': _dense(flat, f'{postnet_prefix}stop_linear/'),
+            'mel_out': _dense(flat, f'{postnet_prefix}mel_out/')},
+    }
+
+
 # ------------------------------------------------- legacy Keras-2 layout
 
 def read_legacy_h5(path):
@@ -271,6 +333,19 @@ def _skel_self_attention_blocks(prefix, n_dense, n_conv, n_cnn_convs):
     return paths
 
 
+def _skel_cross_attention_blocks(prefix, n_blocks):
+    # creation order (model/layers.py:381-403): pos scalar, CADB list,
+    # last_CADB, layernorm; each CADB: sarn, carn, ffn
+    paths = [f'{prefix}/pos_encoding_scalar']
+    for i in range(n_blocks):
+        paths += _skel_sarn(f'{prefix}/block_{i}/sarn')
+        paths += _skel_mha(f'{prefix}/block_{i}/carn/mha')
+        paths += _skel_ln(f'{prefix}/block_{i}/carn/ln')
+        paths += _skel_ffn(f'{prefix}/block_{i}/ffn')
+    paths += _skel_ln(f'{prefix}/ln')
+    return paths
+
+
 def _skel_stat_predictor(prefix, n_convs):
     return (_skel_conv_stack(f'{prefix}/conv_blocks', n_convs,
                              per_conv_ln=True)
@@ -301,6 +376,23 @@ def forward_legacy_skeleton(config: dict):
         _skel_dense('out'),
     ]
 
+
+def aligner_legacy_skeleton(config: dict):
+    """Aligner layer creation order (model/models.py:53-79): Embedding,
+    Encoder, DecoderPrenet, Decoder, FinalProj, Postnet."""
+    return [
+        ['encoder_prenet/table'],
+        _skel_self_attention_blocks(
+            'encoder', len(config['encoder_num_heads']), 0, 0),
+        # DecoderPrenet: d1, d2, then the non-trainable dropout-rate Variable
+        (_skel_dense('decoder_prenet/d1') + _skel_dense('decoder_prenet/d2')
+         + ['__skip__']),
+        _skel_cross_attention_blocks(
+            'decoder', len(config['decoder_num_heads'])),
+        _skel_dense('final_proj_mel'),
+        _skel_dense('decoder_postnet/stop_linear')
+        + _skel_dense('decoder_postnet/mel_out'),
+    ]
 
 # --- name-aware matching helpers ------------------------------------------
 #
@@ -544,17 +636,137 @@ def flatten(tree, prefix: str = '') -> Dict[str, np.ndarray]:
     return flat
 
 
-def read_forward_weights(path, config: dict,
-                         template: Dict[str, tuple]) -> Dict[str, np.ndarray]:
-    """A ForwardTransformer's hdf5 weights file → its ``flatten_params``
-    dict. ``layer_names`` in the root attrs means the legacy Keras-2 layout,
-    mapped onto ``forward_legacy_skeleton(config)`` with every assignment
-    checked against ``template`` ({path: shape}); anything else is Keras 3."""
+# ------------------------------------------------ readers into a model
+
+FORWARD_LAYER_NAMES = ['Embedding', 'Encoder', 'dur_pred', 'expand',
+                       'pitch_pred', 'dense', 'Decoder', 'dense_1']
+ALIGNER_LAYER_NAMES = ['Embedding', 'Encoder', 'DecoderPrenet', 'Decoder',
+                       'FinalProj', 'Postnet']
+
+
+def _is_forward(model) -> bool:
+    from transformertts_torch.models.forward_tts import ForwardTransformer
+    return isinstance(model, ForwardTransformer)
+
+
+def legacy_skeleton(model):
+    """(per-layer ordered pytree paths, the reference's layer names) of
+    ``model``'s class: the ForwardTransformer's or the Aligner's."""
+    if _is_forward(model):
+        return forward_legacy_skeleton(model.config), FORWARD_LAYER_NAMES
+    return aligner_legacy_skeleton(model.config), ALIGNER_LAYER_NAMES
+
+
+def _is_legacy(weights_path) -> bool:
+    """``layer_names`` in the root attrs means the legacy Keras-2 layout."""
     import h5py
-    with h5py.File(path, 'r') as f:
-        legacy = 'layer_names' in f.attrs
-    if not legacy:
-        return flatten(convert_forward_weights(_read_h5_flat(path)))
-    groups, names, layer_names = read_legacy_h5(path)
-    return flatten(convert_legacy_weights(groups, forward_legacy_skeleton(config), template,
+    with h5py.File(weights_path, 'r') as f:
+        return 'layer_names' in f.attrs
+
+
+def read_legacy_weights(model, weights_path) -> Dict[str, np.ndarray]:
+    """A legacy Keras-2 hdf5 file → ``model``'s ``flatten_params`` dict, by
+    the order+shape skeleton mapping; every assignment is checked against
+    the model's own parameter shapes, so ordering errors fail loudly."""
+    template = {k: v.shape for k, v in params_to_jax(model.state_dict()).items()}
+    groups, names, layer_names = read_legacy_h5(weights_path)
+    return flatten(convert_legacy_weights(groups, legacy_skeleton(model)[0], template,
                                           names=names, layer_names=layer_names))
+
+
+def read_reference_weights(model, weights_path) -> Dict[str, np.ndarray]:
+    """An hdf5 weights file of ``model`` (legacy Keras-2 or Keras-3 layout)
+    → its ``flatten_params`` dict."""
+    if _is_legacy(weights_path):
+        return read_legacy_weights(model, weights_path)
+    convert = convert_forward_weights if _is_forward(model) else convert_aligner_weights
+    return flatten(convert(_read_h5_flat(weights_path)))
+
+
+def load_legacy_weights_into(model, weights_path) -> None:
+    """Fill ``model``'s parameters from a legacy Keras-2 hdf5 file."""
+    model.load_state_dict(params_from_jax(read_legacy_weights(model, weights_path)),
+                          strict=True)
+
+
+def load_reference_weights_into(model, weights_path) -> None:
+    """Fill ``model``'s parameters from a reference hdf5 weights file
+    (legacy Keras-2 layout or Keras-3 ``.weights.h5``)."""
+    model.load_state_dict(params_from_jax(read_reference_weights(model, weights_path)),
+                          strict=True)
+
+
+def load_reference_checkpoint(model_dir, device='cuda'):
+    """A self-describing reference model dir (config.yaml + hdf5 weights:
+    ``model_weights.hdf5``, else the first ``*.hdf5`` then ``*.h5``) → its
+    ForwardTransformer on ``device`` (the card unless the caller names
+    another)."""
+    from transformertts_torch.models.forward_tts import ForwardTransformer
+    model_dir = Path(model_dir)
+    with open(model_dir / 'config.yaml') as f:
+        config = yaml.safe_load(f)
+    model = ForwardTransformer(**config)
+    load_reference_weights_into(model, hdf5_weights(model_dir))
+    model.step = int(config.get('step', 0))
+    return model.to(device)
+
+
+# ------------------------------------------------- legacy Keras-2 export
+
+def write_legacy_h5(model, weights_path, include_bare_variables: bool = True) -> None:
+    """Write ``model``'s parameters as a legacy Keras-2 ``save_weights`` hdf5.
+
+    The inverse of :func:`load_legacy_weights_into`: layer groups follow the
+    reference's layer creation order (model/models.py:380-424 forward,
+    :53-79 aligner) with its explicit layer names, and each group's weights
+    follow variable creation order, so the reference's TF ``load_weights``
+    (which zips legacy groups in order) and the JAX package read it. The
+    bare Variable the reference tracks but no model parameterizes
+    (DecoderPrenet.rate) is written from ``decoder_prenet_dropout``.
+
+    include_bare_variables: Keras 2 (the published artifacts) tracks bare
+    ``tf.Variable`` attributes (pos_encoding_scalar, DecoderPrenet.rate) in
+    layer.weights; Keras 3 does not. Pass False to target a Keras-3 TF
+    consumer (its loaded model then keeps pos_encoding_scalar at 1.0).
+    """
+    import h5py
+    flat = params_to_jax(model.state_dict())
+    skeleton, layer_names = legacy_skeleton(model)
+    with h5py.File(weights_path, 'w') as f:
+        f.attrs['layer_names'] = [n.encode() for n in layer_names]
+        f.attrs['backend'] = b'tensorflow'
+        for lname, paths in zip(layer_names, skeleton):
+            g = f.create_group(lname)
+            wnames = []
+            for p in paths:
+                if not include_bare_variables and (
+                        p == '__skip__' or p.endswith('/pos_encoding_scalar')):
+                    continue
+                if p == '__skip__':   # DecoderPrenet.rate, non-trainable
+                    wname = f'{lname}/rate:0'
+                    arr = np.float32(model.config.get('decoder_prenet_dropout', 0.5))
+                elif p.endswith('/table'):   # Keras Embedding variable name
+                    wname = f'{lname}/embeddings:0'
+                    arr = flat[p]
+                else:
+                    wname = f'{lname}/{p.split("/", 1)[-1]}:0'
+                    arr = flat[p]
+                g[wname] = arr
+                wnames.append(wname.encode())
+            g.attrs['weight_names'] = wnames
+
+
+def describe_weight_match(model, weights_path) -> list:
+    """Per-layer match report for a reference hdf5 checkpoint:
+    [(layer_name, skeleton_root, signal)] where signal is how the layer
+    group was paired with model components: 'explicit-name' (matched by the
+    checkpoint's layer_names attr), 'order-fallback' (took a free slot in
+    stored order), or 'named-group' for the Keras-3 layout, whose h5 group
+    paths are the names."""
+    if not _is_legacy(weights_path):
+        roots = sorted({k.split('/', 1)[0] for k in _read_h5_flat(weights_path)})
+        return [(r, r, 'named-group') for r in roots]
+    groups, names, layer_names = read_legacy_h5(weights_path)
+    return [(lname, paths[0].split('/', 1)[0], signal)
+            for _, _, lname, paths, signal in _align_groups(
+                groups, names, layer_names, legacy_skeleton(model)[0])]

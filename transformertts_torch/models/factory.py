@@ -81,7 +81,7 @@ def tts_custom(config_path, weights_path, device='cuda'):
 
 
 def aligner_custom(config_path, weights_path, device='cuda'):
-    """(Aligner, config) from a config YAML and an ``.npz`` weights file, on
-    ``device``; hdf5 Aligner weights raise ``NotImplementedError``."""
+    """(Aligner, config) from a config YAML and a weights file (``.npz`` of
+    either package, or hdf5), on ``device``."""
     from transformertts_torch.models.aligner import Aligner
     return _custom(Aligner, config_path, weights_path, device)

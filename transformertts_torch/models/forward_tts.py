@@ -318,10 +318,11 @@ class ForwardTransformer(nn.Module):
 
     # ----------------------------------------------------------- persistence
 
-    def save_model(self, path):
-        """Self-describing dir: config.yaml + model_weights.npz, readable by
-        the JAX package's ``load_model``."""
-        save_model_dir(self, path)
+    def save_model(self, path, weights_format: str = 'npz'):
+        """Self-describing dir: config.yaml + weights, readable by the JAX
+        package's ``load_model``. weights_format: 'npz', 'hdf5' (the legacy
+        Keras-2 layout the reference TF code loads; needs h5py) or 'both'."""
+        save_model_dir(self, path, weights_format)
 
     @classmethod
     def load_model(cls, path, device='cuda') -> 'ForwardTransformer':

@@ -2,12 +2,12 @@
 
 A model dir is ``config.yaml`` (the constructor config, alphabet and step)
 plus ``model_weights.npz`` keyed by the JAX package's ``flatten_params``
-paths (``encoder/conv_0/sarn/mha/wq/kernel``, ...). Either package loads a
-dir the other wrote, a ForwardTransformer's or an Aligner's. A
-ForwardTransformer dir with hdf5 weights only (the reference's
-``model_weights.hdf5``, or the JAX package's ``weights_format='hdf5'``) loads
-through ``models/convert.py``, which needs h5py; the port has no hdf5 reader
-for the Aligner yet.
+paths (``encoder/conv_0/sarn/mha/wq/kernel``, ...), and/or
+``model_weights.hdf5`` in the legacy Keras-2 layout the reference TF code
+loads. Either package loads a dir the other wrote, a ForwardTransformer's or
+an Aligner's, in either format. The hdf5 side goes through
+``models/convert.py`` and needs h5py, imported only there: an npz dir is
+written and read without it.
 
 Layouts, JAX (Keras) → PyTorch, by leaf:
 
@@ -88,10 +88,21 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return flat
 
 
-def save_model_dir(model, path) -> Path:
-    """Write ``config.yaml`` + ``model_weights.npz`` under ``path``; the
-    config carries ``git describe --always`` as ``git_hash`` where git can
-    tell it, as the JAX package's does."""
+WEIGHTS_FORMATS = ('npz', 'hdf5', 'both')
+
+
+def save_model_dir(model, path, weights_format: str = 'npz') -> Path:
+    """Write ``config.yaml`` and the weights under ``path``; the config
+    carries ``git describe --always`` as ``git_hash`` where git can tell it,
+    as the JAX package's does.
+
+    weights_format: 'npz' (``model_weights.npz``), 'hdf5' (the legacy
+    Keras-2 ``model_weights.hdf5`` the reference TF code and the JAX package
+    load; needs h5py), or 'both'.
+    """
+    if weights_format not in WEIGHTS_FORMATS:
+        raise ValueError(f'unknown weights_format {weights_format!r}: one of '
+                         f'{", ".join(WEIGHTS_FORMATS)}')
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     config = dict(model.config)
@@ -104,13 +115,18 @@ def save_model_dir(model, path) -> Path:
         pass
     with open(path / 'config.yaml', 'w') as f:
         yaml.safe_dump(config, f, allow_unicode=True)
-    np.savez(path / 'model_weights.npz', **params_to_jax(model.state_dict()))
+    if weights_format in ('npz', 'both'):
+        np.savez(path / 'model_weights.npz', **params_to_jax(model.state_dict()))
+    if weights_format in ('hdf5', 'both'):
+        from transformertts_torch.models.convert import write_legacy_h5
+        write_legacy_h5(model, path / 'model_weights.hdf5')
     return path
 
 
-def _hdf5_weights(path: Path) -> Path:
+def hdf5_weights(path: Path) -> Path:
     """``model_weights.hdf5``, else the first ``*.hdf5`` then ``*.h5`` in
     sorted order, as the JAX package picks them."""
+    path = Path(path)
     canonical = path / 'model_weights.hdf5'
     if canonical.exists():
         return canonical
@@ -124,24 +140,17 @@ def _hdf5_weights(path: Path) -> Path:
 def read_weights(model, weights) -> Dict[str, np.ndarray]:
     """A weights file of ``model`` → its JAX ``flatten_params`` dict: an
     ``.npz``, or hdf5 weights (legacy Keras-2 or Keras-3 layout, read with
-    h5py; a ForwardTransformer's only)."""
+    h5py)."""
     weights = Path(weights)
     if weights.suffix == '.npz':
         with np.load(weights) as data:
             return {k: data[k] for k in data.files}
-    name = type(model).__name__
-    if name != 'ForwardTransformer':
-        raise NotImplementedError(
-            f'{weights} holds hdf5 weights: the port reads hdf5 ForwardTransformer weights '
-            f'only; the {name} hdf5 reader (the JAX package\'s convert_aligner_weights) is '
-            f'not ported yet')
     try:
         import h5py  # noqa: F401  (the readers of models/convert.py use it)
     except ImportError as e:
         raise ImportError(f'{weights} holds hdf5 weights: reading them needs h5py') from e
-    from transformertts_torch.models.convert import read_forward_weights
-    template = {k: v.shape for k, v in params_to_jax(model.state_dict()).items()}
-    return read_forward_weights(weights, model.config, template)
+    from transformertts_torch.models.convert import read_reference_weights
+    return read_reference_weights(model, weights)
 
 
 def load_model_dir(cls, path, device='cuda'):
@@ -154,7 +163,7 @@ def load_model_dir(cls, path, device='cuda'):
         config = yaml.safe_load(f)
     model = cls(**config)
     npz = path / 'model_weights.npz'
-    flat = read_weights(model, npz if npz.exists() else _hdf5_weights(path))
+    flat = read_weights(model, npz if npz.exists() else hdf5_weights(path))
     model.load_state_dict(params_from_jax(flat), strict=True)
     model.to(device)
     model.step = int(config.get('step', 0))

@@ -11,6 +11,11 @@ Griffin-Lim, or a neural vocoder (``vocoder=``, ``models/melgan.py`` or
 level. Each wav is trimmed on the host to its own predicted length, at
 least one frame, as ``predict`` keeps: an untrained model's durations can
 all round to zero.
+
+``warmup_serving`` runs every (batch, token, frame) bucket once before the
+first request, through the same encode and decode → waveform pass, so no
+request pays a shape's first-call costs (the kernels' load, cuBLAS/cuDNN
+handles and plans, the caching allocator's growth, the DFT bases).
 """
 from typing import List, Sequence
 
@@ -43,6 +48,20 @@ def encode_chunk(model, tok: np.ndarray, n_rows: int, scalar: float = 1.0):
     return enc, use, totals, _round_up(int(totals[:n_rows].max()), FRAME_BUCKET)
 
 
+def decode_to_wav(model, audio, enc: dict, use: torch.Tensor, frames: int,
+                  n_iter: int, vocoder=None):
+    """One decode → waveform pass over an encoded chunk at ``frames``:
+    Griffin-Lim's ``n_iter`` iterations on the mel with its padding at the
+    normalizer's silence, or ``vocoder``. Returns the peak-normalized
+    (B, samples) wavs on the model's device and their hop."""
+    if vocoder is not None:
+        return (model.decode_vocoder(vocoder, enc['features'], enc['pitch'], use, frames),
+                vocoder.hop_length)
+    dec = model.decode_features(enc['features'], enc['pitch'], use, frames)
+    mel = model.mask_mel_to_silence(dec, audio.silence_level())
+    return model.peak_normalize(audio.mels_to_waveforms(mel, n_iter)), audio.hop_length
+
+
 @torch.inference_mode()
 def synthesize_lines(model, audio, lines: Sequence[str],
                      speed_regulator: float = 1.0, n_iter: int = None,
@@ -54,7 +73,6 @@ def synthesize_lines(model, audio, lines: Sequence[str],
     package. ``vocoder``: a neural vocoder on the model's device, in place
     of Griffin-Lim; the model must be MelGAN-normalized."""
     n_iter = n_iter if n_iter is not None else audio.griffin_lim_iters
-    silence = audio.silence_level()
     scalar = float(np.float32(1.0 / speed_regulator))
     wavs: List[np.ndarray] = [None] * len(lines)
     entries = []   # (input index, tokens)
@@ -73,16 +91,42 @@ def synthesize_lines(model, audio, lines: Sequence[str],
         for row, (_, t) in enumerate(chunk):
             tok[row, :len(t)] = t
         enc, use, totals, frames = encode_chunk(model, tok, len(chunk), scalar)
-        if vocoder is not None:
-            wav = model.decode_vocoder(vocoder, enc['features'], enc['pitch'], use, frames)
-            hop = vocoder.hop_length
-        else:
-            dec = model.decode_features(enc['features'], enc['pitch'], use, frames)
-            mel = model.mask_mel_to_silence(dec, silence)
-            wav = model.peak_normalize(audio.mels_to_waveforms(mel, n_iter))
-            hop = audio.hop_length
+        wav, hop = decode_to_wav(model, audio, enc, use, frames, n_iter, vocoder)
         wav = wav.cpu().numpy()
         for row, (orig_idx, _) in enumerate(chunk):
             frames_kept = max(1, int(totals[row]) - 1)
             wavs[orig_idx] = wav[row, :frames_kept * hop]
     return wavs
+
+
+@torch.inference_mode()
+def warmup_serving(model, audio, max_batch: int = 32,
+                   token_buckets: Sequence[int] = (32, 64, 96, 128),
+                   frame_buckets: Sequence[int] = (128, 256, 384),
+                   n_iter: int = None, vocoder=None,
+                   include_ragged_batches: bool = True) -> int:
+    """Run the serving menu once so that no request pays a shape's first
+    call: for each batch bucket (``max_batch``, and with
+    ``include_ragged_batches`` the powers of two below it, which the last
+    chunk of a request takes) and each token bucket, one ``encode_chunk`` on
+    all-ones tokens, then for each frame bucket the decode → waveform pass
+    ``synthesize_lines`` runs (Griffin-Lim, or ``vocoder``). Waits for the
+    device and returns the number of (batch, token, frame) combinations
+    warmed."""
+    n_iter = n_iter if n_iter is not None else audio.griffin_lim_iters
+    batches = [max_batch]
+    if include_ragged_batches:
+        p = 1
+        while p < max_batch:
+            batches.append(p)
+            p *= 2
+    count = 0
+    for b in batches:
+        for n_tok in token_buckets:
+            enc, use, _, _ = encode_chunk(model, np.ones((b, n_tok), np.int64), b)
+            for frames in frame_buckets:
+                decode_to_wav(model, audio, enc, use, frames, n_iter, vocoder)
+                count += 1
+    if model.device.type == 'cuda':
+        torch.cuda.synchronize(model.device)
+    return count

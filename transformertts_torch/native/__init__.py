@@ -4,8 +4,8 @@ The library is built with g++ at first use, never at import, into
 ``build/native/`` beside the package (listed in ``.gitignore``), keyed on a
 hash of the source: an edited source rebuilds, an unchanged one loads the
 library already built. ``available()`` is False where it cannot be built (no
-compiler), and duration extraction then takes its torch path. Only the
-duration DP is bound; the VAD entry is not yet.
+compiler): duration extraction then takes its torch path, and long-silence
+trimming its NumPy path (``audio/vad.py``).
 """
 import ctypes
 import hashlib
@@ -67,6 +67,10 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.duration_dp_range.restype = None
+        lib.vad_long_silence_mask.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.vad_long_silence_mask.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -103,3 +107,26 @@ def duration_dp_batch(costs: np.ndarray, ms: np.ndarray, ns: np.ndarray,
     with ThreadPoolExecutor(max_workers=len(bounds) - 1) as pool:
         list(pool.map(run, range(len(bounds) - 1)))
     return out
+
+
+def vad_long_silence_mask(wav: np.ndarray, sampling_rate: int, window_ms: int,
+                          moving_average_width: int, max_silence_length: int,
+                          energy_threshold_db: float = -48.0) -> np.ndarray:
+    """(T,) waveform → (T,) boolean keep mask, the semantics of
+    ``audio/vad.py``'s NumPy path (``long_silence_mask``) on the whole
+    windows; samples past the last whole window are False."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError('native_ops could not be built (g++ is needed)')
+    wav = np.ascontiguousarray(wav, np.float32)
+    if wav.ndim != 1 or (window_ms * sampling_rate) // 1000 < 1 \
+            or moving_average_width < 1 or max_silence_length < 0:
+        raise ValueError(f'vad_long_silence_mask: a 1-d wav, a window of at least one '
+                         f'sample, moving_average_width >= 1 and max_silence_length >= 0; '
+                         f'got shape {wav.shape}, {window_ms} ms at {sampling_rate} Hz, '
+                         f'{moving_average_width}, {max_silence_length}')
+    mask = np.zeros(len(wav), np.uint8)
+    lib.vad_long_silence_mask(wav.ctypes.data, len(wav), sampling_rate, window_ms,
+                              moving_average_width, max_silence_length,
+                              energy_threshold_db, mask.ctypes.data)
+    return mask.astype(bool)

@@ -9,8 +9,8 @@
 //    tie-breaks).
 //  - vad_long_silence_mask: per-window adaptive log-energy voice activity
 //    with moving-average smoothing + binary dilation, mirroring
-//    audio/vad.py::trim_long_silences (not bound yet: the port's VAD is
-//    the NumPy path).
+//    audio/vad.py::long_silence_mask (the NumPy path, which
+//    trim_long_silences takes where this library is not built).
 //
 // Built with g++ at first use into build/native/ and bound with ctypes
 // (transformertts_torch/native/__init__.py).

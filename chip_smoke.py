@@ -128,7 +128,28 @@ prints no result):
    loss must fall, and the synthetic language of tests/convergence_check.py
    trained 2,500 steps at d 48 on the kernels, whose extracted durations
    must come within 1.5 frames of the known ones;
-13. the last three lines: the kernels' JSON record (each kernel's time, its
+13. data parallelism (``parallel/mesh.py``) at world size 1, the one
+   card the machine has: ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` runs ``transformertts_torch.train_tts`` (its
+   ``main``, in this script's ``--train-child`` mode, which counts the
+   kernels' launches) on the published TTS settings at dropout 0 with
+   ``mesh: {data: -1}``, so the trainer's losses, gradients and logged
+   outputs go through an NCCL process group, for ``DP_TTS_STEPS`` steps
+   with validation and a checkpoint at the end; the same session without
+   torchrun, one process without a group; the two runs' per-step losses
+   and final checkpoints compared leaf by leaf (bit for bit, or the
+   largest difference printed) and their K2/K3/K4 launches (equal, 12 a
+   step), both with deterministic algorithms on; the same for the Aligner
+   at a reduced depth (``DP_ALIGNER``); then, in one process under
+   torchrun, ms a step of both models' trainers with the group and without
+   it, in turns on one fixed batch (deterministic algorithms off); ``mesh: {data: 2}`` refused under
+   torchrun with the tiling message; ``synthesize_lines(mesh=make_mesh(MeshConfig(data=1)))``
+   and ``predict_tts --data_parallel 1`` against the same calls without a
+   mesh (the same wavs), with K1's launches and sentences/s on a full
+   32-line chunk both ways; and K1-K4 at head width 100, which their
+   wrappers pad to 104, against the plain versions in float32 and
+   bfloat16, with a head of 384 taking ``MultiHeadAttention``'s eager path;
+14. the last three lines: the kernels' JSON record (each kernel's time, its
    plain version's, one PyTorch library call's that computes the same
    function, and its bound: the larger of the FLOPs the function needs
    (for K5 an FFT's) over the card's peak rate for their type and its
@@ -143,6 +164,7 @@ them to the JAX package (``tests/test_torch_interop.py``,
 import copy
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -266,6 +288,20 @@ WARM_LAUNCHES = (len(PUBLISHED['encoder_num_heads']) * 6 * 4
 # same shapes, so bit for bit is expected; the card-vs-CPU vocoder bar at most
 WARM_WAV_ATOL = VOCODER_CPU_ATOL
 WARM_CHILD_TIMEOUT_S = 300
+# the data-parallel phase: steps of each training run, the Aligner's reduced
+# depth (2 encoder and 2 decoder blocks, the last of one head of 256), and
+# the head widths the attention wrappers pad or leave to the eager path
+DP_TTS_STEPS = 10
+DP_ALIGNER_STEPS = 6
+DP_ALIGNER = dict(encoder_num_heads=[4, 4], decoder_num_heads=[4, 1])
+DP_PADDED_CASES = [((4, 2, 300, 300, 100), False), ((4, 2, 300, 300, 100), True),
+                   ((2, 3, 129, 77, 100), False)]
+DP_WIDE_HEAD = 384
+DP_CHILD_TIMEOUT_S = 400
+# the data-parallel phase's timed steps: untimed steps of each trainer,
+# then rounds of four timed steps (grouped, alone, alone, grouped)
+DP_TIME_WARMUP = 5
+DP_TIME_ROUNDS = 8
 
 
 def log(*args):
@@ -1967,6 +2003,403 @@ def synthetic_language_convergence(device, steps: int = 2500) -> dict:
             'mean_duration': float(np.mean([s[1].mean() for s in samples]))}
 
 
+def train_child(kind: str, cfg: str, out: str):
+    """One training CLI run in this process, the ``main`` that ``python -m
+    transformertts_torch.train_tts`` (``kind`` 'tts') or ``.train_aligner``
+    runs (``chip_smoke.py --train-child``, started by
+    ``data_parallel_phase`` under torchrun or alone): the K2/K3/K4 counts
+    set to 0 just before ``main`` and read just after, the backend of any
+    process group it brought up and each step's loss, written to ``out`` as
+    JSON. PyTorch's deterministic algorithms are on (the length regulator's
+    gather backward otherwise adds with atomics in any order, and cuDNN may
+    pick such algorithms too), so two runs compare bit for bit."""
+    import torch.distributed as dist
+    from transformertts_torch import train_aligner, train_tts
+    from transformertts_torch.training.base_trainer import BaseTrainer
+    tf32_off()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    _, ops = _trainable_ops()
+    backends, losses = [], []
+    init, train_step = dist.init_process_group, BaseTrainer.train_step
+
+    def recording_init(backend=None, **kwargs):
+        backends.append(backend)
+        return init(backend, **kwargs)
+
+    def recording_step(self, batch, **options):
+        aux = train_step(self, batch, **options)
+        losses.append(aux['loss'])
+        return aux
+
+    dist.init_process_group = recording_init
+    BaseTrainer.train_step = recording_step
+    for f in ops:
+        f.launches = 0
+    t0 = time.perf_counter()
+    validation = (train_tts if kind == 'tts' else train_aligner).main(
+        ['--config', cfg, '--yes', '--device', DEVICE])
+    torch.cuda.synchronize()
+    Path(out).write_text(json.dumps(dict(
+        launches=_launch_counts(ops), seconds=time.perf_counter() - t0, backends=backends,
+        losses=[float(x) for x in losses],
+        validation={str(k): v for k, v in validation.items()})))
+
+
+def time_child(cfg: str, out: str):
+    """ms a training step with the process group and without it, in one
+    process under torchrun (``chip_smoke.py --time-child``): the group of
+    one brought up by ``maybe_initialize_distributed``, and for each of the
+    session's two models (the TTS at its width, the Aligner at its reduced
+    depth) two trainers from the same weights, one on the group's mesh and
+    one on a mesh of one process without it, stepped on one fixed batch
+    (the TTS B32 x 128 tokens x 512 frames, the Aligner B16 x 896 frames x
+    160 tokens at r = 1) with deterministic algorithms off. After
+    ``DP_TIME_WARMUP`` steps each, ``DP_TIME_ROUNDS`` rounds of single
+    steps in the order grouped, alone, alone, grouped, each timed on the
+    host clock between two ``torch.cuda.synchronize()``; written to ``out``
+    as JSON: each trainer's step times in ms."""
+    from transformertts_torch.parallel import ProcessMesh, maybe_initialize_distributed
+    from transformertts_torch.parallel.mesh import destroy_distributed
+    from transformertts_torch.profile_train import aligner_batch, synthetic_batch
+    from transformertts_torch.training.aligner_trainer import AlignerTrainer
+    from transformertts_torch.training.forward_trainer import ForwardTrainer
+    from transformertts_torch.utils.config import TrainingConfigManager
+    mesh = maybe_initialize_distributed({'mesh': {'data': -1}}, DEVICE)
+    if not mesh.grouped:
+        raise AssertionError('--time-child runs under torchrun, with a process group')
+    result = {}
+    try:
+        for kind in ('tts', 'aligner'):
+            cm = TrainingConfigManager(cfg, aligner=kind == 'aligner')
+            schedule = cm.config['learning_rate_schedule']
+            trainers = {}
+            for label, on in (('grouped', mesh), ('single', ProcessMesh())):
+                model = cm.get_model('cpu').init_params(
+                    torch.Generator().manual_seed(SEED)).to(DEVICE)
+                trainers[label] = (ForwardTrainer(model, schedule, mesh=on) if kind == 'tts'
+                                   else AlignerTrainer(model, schedule, mesh=on,
+                                                       stop_scaling=cm.stop_scaling))
+            model = trainers['single'].model
+            if kind == 'tts':
+                batch, options = synthetic_batch(model, seed=SEED), {}
+            else:
+                batch, options = aligner_batch(model, 16, 160, 896, SEED), {'r': 1}
+            times = {'grouped': [], 'single': []}
+            for _ in range(DP_TIME_WARMUP):
+                for trainer in trainers.values():
+                    trainer.train_step(batch, **options)
+            for _ in range(DP_TIME_ROUNDS):
+                for label in ('grouped', 'single', 'single', 'grouped'):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    aux = trainers[label].train_step(batch, **options)
+                    torch.cuda.synchronize()
+                    times[label].append((time.perf_counter() - t0) * 1e3)
+                    if not np.isfinite(aux['loss'].item()):
+                        raise AssertionError(f'{kind} {label}: a timed step gave loss '
+                                             f'{aux["loss"].item()}')
+            result[kind] = times
+            del trainers, model
+    finally:
+        destroy_distributed()
+    Path(out).write_text(json.dumps(result))
+
+
+def _torchrun(*argv) -> list:
+    """The command that runs ``argv`` as the one process of a torchrun launch."""
+    return [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+            '--nproc_per_node', '1', *argv]
+
+
+def _session_variant(cfg: Path, name: str, section: str = None, overrides: dict = None):
+    """``cfg`` with its logs under ``name`` beside it (the data dir shared)
+    and ``overrides`` in ``section``."""
+    session = yaml.safe_load(cfg.read_text())
+    session['paths']['log_directory'] = str(cfg.parent / name)
+    if section:
+        session[section].update(overrides)
+    path = cfg.parent / f'{name}.yaml'
+    path.write_text(yaml.safe_dump(session))
+    return path
+
+
+def _train_run(kind: str, session: Path, grouped: bool) -> dict:
+    """``train_child`` on ``session`` under torchrun (an NCCL group of one)
+    or alone (no group): its JSON record, and whether the CLI said it ran
+    data-parallel."""
+    out = session.with_suffix('.json')
+    argv = [str(ROOT / 'chip_smoke.py'), '--train-child', kind, str(session), str(out)]
+    cmd = _torchrun(*argv) if grouped else [sys.executable, *argv]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=DP_CHILD_TIMEOUT_S,
+                          env={**os.environ, 'CUBLAS_WORKSPACE_CONFIG': ':4096:8'})
+    if proc.returncode != 0:
+        raise AssertionError(f'{kind} run {"under torchrun" if grouped else "alone"} '
+                             f'failed ({proc.returncode}): {proc.stdout[-2000:]}\n'
+                             f'{proc.stderr[-4000:]}')
+    record = json.loads(out.read_text())
+    record['data_parallel'] = 'rank 0 of 1, data-parallel' in proc.stdout
+    if record['backends'] != (['nccl'] if grouped else []) \
+            or record['data_parallel'] != grouped:
+        raise AssertionError(f'{kind}: process groups {record["backends"]} '
+                             f'{"under torchrun" if grouped else "alone"}, not '
+                             f'{"one NCCL group" if grouped else "none"}')
+    return record
+
+
+def _train_pair(kind: str, cfg: Path, steps: int) -> dict:
+    """``kind``'s CLI on ``cfg`` under torchrun and alone, both with
+    deterministic algorithms: the two runs' launches and per-step losses,
+    and their final checkpoints compared leaf by leaf, which must agree bit
+    for bit."""
+    from transformertts_torch.utils.config import TrainingConfigManager
+    runs = {}
+    for label in ('grouped', 'single'):
+        session = _session_variant(cfg, f'{kind}_{label}')
+        runs[label] = _train_run(kind, session, label == 'grouped')
+        cm = TrainingConfigManager(session, aligner=kind == 'aligner')
+        runs[label]['ckpt'] = cm.weights_dir / f'ckpt_{steps}.npz'
+    grouped, single = runs['grouped'], runs['single']
+    if len(grouped['losses']) != steps or len(single['losses']) != steps:
+        raise AssertionError(f'{kind}: took {len(grouped["losses"])} and '
+                             f'{len(single["losses"])} steps, not {steps}')
+    with np.load(grouped['ckpt']) as a, np.load(single['ckpt']) as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError(f'{kind}: the checkpoints hold different leaves')
+        diffs = [float(np.abs(a[k].astype(np.float64) - b[k]).max(initial=0.0))
+                 for k in a.files]
+        bitwise = all(np.array_equal(a[k], b[k]) for k in a.files)
+    loss_diff = max(abs(x - y) for x, y in zip(grouped['losses'], single['losses']))
+    entry = dict(
+        launches=grouped['launches'], single_launches=single['launches'],
+        losses_bitwise=grouped['losses'] == single['losses'], max_loss_diff=loss_diff,
+        ckpt_bitwise=bitwise, max_leaf_diff=max(diffs), leaves=len(diffs),
+        seconds=grouped['seconds'], single_seconds=single['seconds'],
+        validation=grouped['validation'], single_validation=single['validation'])
+    if grouped['launches'] != single['launches']:
+        raise AssertionError(f'{kind}: K2/K3/K4 launched {grouped["launches"]} times under '
+                             f'torchrun, {single["launches"]} alone')
+    if not np.isfinite(grouped['losses']).all() or not entry['losses_bitwise'] \
+            or not bitwise:
+        raise AssertionError(f'{kind}: torchrun and alone differ: losses by up to '
+                             f'{loss_diff}, the final checkpoint by up to {max(diffs)} '
+                             f'(losses {grouped["losses"]} and {single["losses"]})')
+    return entry
+
+
+def _step_times(cfg: Path) -> dict:
+    """``time_child`` under torchrun on the session ``cfg``: for the TTS and
+    the Aligner, ms a step with the group and without it (the medians of
+    ``DP_TIME_ROUNDS`` * 2 steps each), and each label's spread (its
+    quartiles)."""
+    out = cfg.parent / 'step_times.json'
+    proc = subprocess.run(_torchrun(str(ROOT / 'chip_smoke.py'), '--time-child', str(cfg),
+                                    str(out)),
+                          cwd=ROOT, capture_output=True, text=True, timeout=DP_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f'the timed steps failed ({proc.returncode}): '
+                             f'{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}')
+    times = json.loads(out.read_text())
+    return {kind: {label: dict(ms=statistics.median(t),
+                               quartiles=[float(q) for q in np.percentile(t, [25, 75])],
+                               steps=len(t))
+                   for label, t in runs.items()}
+            for kind, runs in times.items()}
+
+
+def _refusal(cfg: Path) -> str:
+    """``mesh: {data: 2}`` under torchrun on one card: train_tts must exit
+    non-zero with the tiling message. Returns the message's line."""
+    session = _session_variant(cfg, 'refused', 'tts_settings', {'mesh': {'data': 2}})
+    proc = subprocess.run(_torchrun('-m', 'transformertts_torch.train_tts', '--config',
+                                    str(session), '--yes', '--device', DEVICE),
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=DP_CHILD_TIMEOUT_S)
+    said = [l for l in (proc.stdout + proc.stderr).splitlines() if 'does not tile' in l]
+    if proc.returncode == 0 or not said:
+        raise AssertionError(f'mesh data 2 on one card: exit {proc.returncode}, no tiling '
+                             f'message: {proc.stderr[-3000:]}')
+    return said[-1].strip()
+
+
+def _dp_serving(model_dir: Path, card: str) -> dict:
+    """``synthesize_lines`` over a one-card mesh against no mesh on a full
+    32-line chunk (the same wavs, K1's launches, sentences/s each way,
+    median of 3), and ``predict_tts --data_parallel 1`` against no flag."""
+    from transformertts_torch import predict_tts
+    from transformertts_torch.audio import Audio
+    from transformertts_torch.audio.wav_io import load_wav
+    from transformertts_torch.models import ForwardTransformer
+    from transformertts_torch.models.synthesis import synthesize_lines
+    from transformertts_torch.ops.flash_attention import flash_attention
+    from transformertts_torch.parallel import MeshConfig, make_mesh
+    model = ForwardTransformer.load_model(model_dir, device=DEVICE)
+    audio = Audio.from_config(model.config)
+    base = [l for l in (ROOT / 'config' / 'test_sentences.txt').read_text().splitlines()
+            if l.strip()]
+    lines = (base * VOCODER_CHUNK_LINES)[:VOCODER_CHUNK_LINES]
+    mesh = make_mesh(MeshConfig(data=1))
+    synthesize_lines(model, audio, lines, mesh=mesh)   # warm
+    flash_attention.launches = 0
+    meshed = synthesize_lines(model, audio, lines, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    plain = synthesize_lines(model, audio, lines)
+    diff = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(meshed, plain))
+    if [w.shape for w in meshed] != [w.shape for w in plain] or not diff <= WARM_WAV_ATOL:
+        raise AssertionError(f'mesh serving differs from one device by {diff}')
+    blocks = len(PUBLISHED['encoder_num_heads']) + len(PUBLISHED['decoder_num_heads'])
+    if launches != blocks:
+        raise AssertionError(f'a 32-line chunk over the mesh launched K1 {launches} times, '
+                             f'not {blocks}')
+    rates = {}
+    for label, kwargs in (('mesh', dict(mesh=mesh)), ('one', {})):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            synthesize_lines(model, audio, lines, **kwargs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rates[label] = len(lines) / statistics.median(times)
+    work = WORK / 'data_parallel' / 'predict'
+    work.mkdir(parents=True, exist_ok=True)
+    text = work / 'lines.txt'
+    text.write_text('\n'.join(base) + '\n')
+    written = {}
+    for label, flag in (('mesh', ['--data_parallel', '1']), ('one', [])):
+        predict_tts.main(['-p', str(model_dir), '-f', str(text), '-o', str(work / label),
+                          '--single', '--device', DEVICE, *flag])
+        written[label] = {p.name: load_wav(p)[0] for p in sorted((work / label).rglob('*.wav'))}
+    if written['mesh'].keys() != written['one'].keys() or len(written['one']) != len(base) + 1 \
+            or not all(np.array_equal(written['mesh'][k], written['one'][k])
+                       for k in written['one']):
+        raise AssertionError('predict_tts --data_parallel 1 wrote other wavs than without it')
+    log(f'data-parallel serving ({card}): a {len(lines)}-line chunk over make_mesh(data=1) '
+        f'gives the one-device wavs (max |diff| {diff:.3g}), K1 launches {launches}; '
+        f'{rates["mesh"]:.3f} sentences/s over the mesh, {rates["one"]:.3f} without '
+        f'(median of 3); predict_tts --data_parallel 1 wrote the same {len(written["one"])} '
+        f'wavs')
+    return dict(launches=launches, sentences_per_s=rates['mesh'],
+                one_device_sentences_per_s=rates['one'], max_wav_diff=diff)
+
+
+def _padded_width_check() -> dict:
+    """K1-K4 at head width 100 (their wrappers pad it to 104 and slice the
+    outputs back) against the plain versions at D 100, in float32 and
+    bfloat16; a head of ``DP_WIDE_HEAD`` through ``MultiHeadAttention``
+    takes the eager path and launches no kernel."""
+    from transformertts_torch.nn import attention
+    fa, ops = _trainable_ops()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 16)
+    errors = {'K1': 0.0, 'K2': 0.0, 'K3': 0.0, 'K4': 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        grad_tol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
+        for shape, causal in DP_PADDED_CASES:
+            q, k, v, bias = _qkv(shape, dtype, gen)
+            dout = torch.randn(q.shape, device='cuda', generator=gen).to(dtype)
+            counts = [fa.flash_attention.launches] + _launch_counts(ops)
+            out1 = fa.flash_attention(q, k, v, bias, causal)
+            out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, causal)
+            dq = fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, causal)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, causal)
+            torch.cuda.synchronize()
+            if [fa.flash_attention.launches] + _launch_counts(ops) != [c + 1 for c in counts]:
+                raise AssertionError(f'D 100 at {shape}: a kernel did not launch once')
+            ref_out, ref_lse = fa.attention_fwd_lse_plain(q, k, v, bias, causal)
+            ref = fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, causal)
+            for name, mine, want, tol in (('K1', out1, ref_out, fwd_tol),
+                                          ('K2', out, ref_out, fwd_tol),
+                                          ('K2', lse, ref_lse, F32_TOL),
+                                          ('K3', dq, ref[0], grad_tol),
+                                          ('K4', dk, ref[1], grad_tol),
+                                          ('K4', dv, ref[2], grad_tol)):
+                if mine.shape != want.shape or not torch.isfinite(mine).all():
+                    raise AssertionError(f'{name} at D 100 {shape}: shape {mine.shape} or '
+                                         f'not finite')
+                torch.testing.assert_close(mine.float(), want.float(), **tol)
+                errors[name] = max(errors[name], (mine.float() - want.float()).abs().max().item())
+    wide = attention.MultiHeadAttention(DP_WIDE_HEAD, 1)
+    wgen = torch.Generator().manual_seed(SEED + 17)
+    with torch.no_grad():
+        for p in wide.parameters():
+            p.copy_(torch.randn(p.shape, generator=wgen) * 0.05)
+    wide = wide.to(DEVICE)
+    x = torch.randn(2, 50, DP_WIDE_HEAD, device=DEVICE, generator=gen)
+    before = [fa.flash_attention.launches] + _launch_counts(ops)
+    with torch.no_grad():
+        out, weights = wide(x, x, x, None, need_weights=False)
+        eager, _ = wide(x, x, x, None, need_weights=True)
+    torch.cuda.synchronize()
+    if [fa.flash_attention.launches] + _launch_counts(ops) != before or weights is not None \
+            or not torch.equal(out, eager):
+        raise AssertionError(f'a head of {DP_WIDE_HEAD} did not take the eager path')
+    log(f'head width 100, padded to 104: K1-K4 against the plain versions at D 100, '
+        f'max |err| {", ".join(f"{k} {v:.3g}" for k, v in errors.items())}; a head of '
+        f'{DP_WIDE_HEAD} takes the eager path, no kernel launched')
+    return errors
+
+
+def data_parallel_phase(model_dir: Path, card: str) -> dict:
+    """Data parallelism on the one card: training under torchrun against
+    training alone (TTS at the published width, the Aligner at a reduced
+    depth), the tiling refusal, serving over a one-card mesh, and the
+    attention at a padded and a too-wide head width."""
+    from transformertts_torch.utils.config import TrainingConfigManager
+    work = WORK / 'data_parallel'
+    if work.exists():
+        shutil.rmtree(work)
+    mesh = {'data': -1, 'model': 1}
+    tts = dict(dropout_rate=0.0, predictors_dropout=0.0, max_steps=DP_TTS_STEPS,
+               validation_frequency=DP_TTS_STEPS, checkpoint_frequency=DP_TTS_STEPS,
+               weights_save_frequency=10 ** 9, prediction_start_step=10 ** 9, mesh=mesh)
+    aligner = dict(DP_ALIGNER, dropout_rate=0.0, decoder_prenet_dropout=0.0,
+                   max_steps=DP_ALIGNER_STEPS, reduction_factor_schedule=[[0, 10], [2, 1]],
+                   force_encoder_diagonal_steps=1, force_decoder_diagonal_steps=2,
+                   train_images_plotting_frequency=4, validation_frequency=DP_ALIGNER_STEPS,
+                   checkpoint_frequency=DP_ALIGNER_STEPS, prediction_start_step=10 ** 9,
+                   mesh=mesh)
+    cfg = write_session(work, tts, aligner_overrides=aligner)
+    write_synthetic_data(TrainingConfigManager(cfg), n_train=90, n_valid=6)
+    record = {}
+    for kind, steps in (('tts', DP_TTS_STEPS), ('aligner', DP_ALIGNER_STEPS)):
+        entry = _train_pair(kind, cfg, steps)
+        log(f'data-parallel {kind} training ({card}), {steps} steps: torchrun (NCCL, world '
+            f'size 1) against one process without a group, deterministic algorithms in '
+            f'both: losses and final checkpoint ({entry["leaves"]} leaves) bit for bit; '
+            f'K2/K3/K4 launches {entry["launches"]} (alone {entry["single_launches"]}); '
+            f'validation {entry["validation"]} (alone {entry["single_validation"]})')
+        record[kind] = entry
+    for kind, times in _step_times(cfg).items():
+        record[kind].update(ms_per_step=times['grouped']['ms'],
+                            single_ms_per_step=times['single']['ms'], step_times=times)
+        log(f'data-parallel {kind} ms/step ({card}), one process, deterministic algorithms '
+            f'off, one fixed batch, {times["grouped"]["steps"]} synchronized steps each in '
+            f'turns (grouped, alone, alone, grouped): on the NCCL group of one '
+            f'{times["grouped"]["ms"]:.3f} (quartiles '
+            f'{", ".join(f"{q:.3f}" for q in times["grouped"]["quartiles"])}), without it '
+            f'{times["single"]["ms"]:.3f} (quartiles '
+            f'{", ".join(f"{q:.3f}" for q in times["single"]["quartiles"])})')
+    blocks = len(PUBLISHED['encoder_num_heads']) + len(PUBLISHED['decoder_num_heads'])
+    if record['tts']['launches'] != [blocks * DP_TTS_STEPS] * 3:
+        raise AssertionError(f'data-parallel TTS: K2/K3/K4 launches {record["tts"]["launches"]}, '
+                             f'not {blocks * DP_TTS_STEPS} each')
+    # kernel steps: neither forced (steps 0-1) nor plotting (step 3); each
+    # attention but the last cross-attention
+    per_step = len(DP_ALIGNER['encoder_num_heads']) + 2 * len(DP_ALIGNER['decoder_num_heads']) - 1
+    kernel_steps = [s for s in range(DP_ALIGNER_STEPS) if s >= 2 and (s + 1) % 4]
+    if record['aligner']['launches'] != [per_step * len(kernel_steps)] * 3:
+        raise AssertionError(f'data-parallel Aligner: K2/K3/K4 launches '
+                             f'{record["aligner"]["launches"]}, not '
+                             f'{per_step * len(kernel_steps)} each')
+    record['refusal'] = _refusal(cfg)
+    log(f'mesh data 2 on one card under torchrun: refused ("{record["refusal"]}")')
+    record['serving'] = _dp_serving(model_dir, card)
+    record['padded'] = _padded_width_check()
+    return record
+
+
 def main():
     card = device_phase()
     build_phase()
@@ -1985,6 +2418,7 @@ def main():
     aligner_bwd = aligner_backward_phase()
     aligner = aligner_phase(featurize['config'])
     aligner_train = aligner_training_phase(featurize['config'])
+    data_parallel = data_parallel_phase(result['model_dir'], card)
     times = serving['times']
     dec = times['decoder']
     kernels = [{
@@ -2003,6 +2437,8 @@ def main():
         'vocoder_serving_launches': {k: v['launches'] for k, v in vocoders.items()},
         'warmup_serving_launches': {k: v['launches'] for k, v in warm_start.items()},
         'extraction_launches': aligner['launches'],
+        'data_parallel_serving_launches': data_parallel['serving']['launches'],
+        'd100_max_abs_err': data_parallel['padded']['K1'],
         **aligner_kernels, 'f32_resources': f32_resources['K1'],
     }]
     t_dec, t_enc = trainable['times']['decoder'], trainable['times']['encoder']
@@ -2032,8 +2468,12 @@ def main():
     kernels[-1].update(rel_l2_dk=rel_l2['dk'], rel_l2_dv=rel_l2['dv'],
                        **trainable['resources']['K4'])
     # the float32 backward, the Aligner training path's
-    for i in range(3):
-        kernels[1 + i]['aligner_training_launches'] = aligner_train['launches'][i]
+    for i, label in enumerate(('K2', 'K3', 'K4')):
+        kernels[1 + i].update(
+            aligner_training_launches=aligner_train['launches'][i],
+            data_parallel_training_launches=data_parallel['tts']['launches'][i],
+            data_parallel_aligner_launches=data_parallel['aligner']['launches'][i],
+            d100_max_abs_err=data_parallel['padded'][label])
     for entry, label in ((kernels[-2], 'K3'), (kernels[-1], 'K4')):
         limit = aligner_bwd['bounds'][label]
         entry.update(
@@ -2095,6 +2535,13 @@ def main():
                                          in aligner_train['ms_per_step'].items())
         + f'; synthetic-language duration MAE '
         f'{aligner_train["convergence"]["duration_mae"]:.3f} frames')
+    dp_tts, dp_aligner = data_parallel['tts'], data_parallel['aligner']
+    log(f'data parallelism at world size 1 ({card}), synchronized steps in turns on one '
+        f'batch: TTS {dp_tts["ms_per_step"]:.3f} ms/step on an NCCL group of one, '
+        f'{dp_tts["single_ms_per_step"]:.3f} without; Aligner (reduced depth) '
+        f'{dp_aligner["ms_per_step"]:.3f} and {dp_aligner["single_ms_per_step"]:.3f}; '
+        f'serving over a one-card mesh {data_parallel["serving"]["sentences_per_s"]:.3f} '
+        f'sentences/s, {data_parallel["serving"]["one_device_sentences_per_s"]:.3f} without')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
@@ -2103,4 +2550,8 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--train-child']:
+        sys.exit(train_child(*sys.argv[2:]))
+    if sys.argv[1:2] == ['--time-child']:
+        sys.exit(time_child(*sys.argv[2:]))
     sys.exit(main())

@@ -4,10 +4,14 @@ to the CPU. With ``device='cpu'`` each runs here, as the other CPU tests
 call them.
 """
 import json
+import os
+import socket
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from test_torch_aligner import TINY_ALIGNER
 from test_torch_duration_extraction import write_featurized
@@ -22,6 +26,8 @@ from transformertts_torch.models.hifigan import HiFiGANVocoder
 from transformertts_torch.models.melgan import MelGANVocoder
 from transformertts_torch.models.persistence import load_model_dir
 from transformertts_torch.models.vocoder import load_vocoder
+from transformertts_torch.parallel import maybe_initialize_distributed
+from transformertts_torch.parallel.mesh import destroy_distributed
 from transformertts_torch.training import checkpointing
 from transformertts_torch.utils.config import TrainingConfigManager
 
@@ -120,3 +126,39 @@ def test_entry_point_runs_on_the_cpu_when_asked(entry, model_dir):
         assert out['clips'] == 2
     else:
         assert isinstance(out, np.ndarray) and out.size > 0 and np.isfinite(out).all()
+
+
+def _torchrun_env() -> dict:
+    """The environment torchrun gives the one rank of a group of one."""
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    return {'RANK': '0', 'WORLD_SIZE': '1', 'LOCAL_RANK': '0',
+            'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': str(port)}
+
+
+def test_process_group_defaults_to_the_card():
+    """Under torchrun, ``maybe_initialize_distributed`` without a device
+    brings up an NCCL group on the card, or raises without one: it never
+    brings up a gloo group, whose collectives would run through the host."""
+    try:
+        with mock.patch.dict(os.environ, _torchrun_env()):
+            if not torch.cuda.is_available():
+                with pytest.raises(RuntimeError, match='no CUDA device'):
+                    maybe_initialize_distributed({'mesh': {'data': -1}})
+                assert not dist.is_initialized()
+                return
+            mesh = maybe_initialize_distributed({'mesh': {'data': -1}})
+            assert mesh.grouped and dist.get_backend() == 'nccl'
+    finally:
+        destroy_distributed()
+
+
+def test_process_group_runs_on_the_cpu_when_asked():
+    try:
+        with mock.patch.dict(os.environ, _torchrun_env()):
+            mesh = maybe_initialize_distributed({'mesh': {'data': -1}}, device='cpu')
+        assert (mesh.rank, mesh.size, mesh.grouped) == (0, 1, True)
+        assert dist.get_backend() == 'gloo'
+    finally:
+        destroy_distributed()

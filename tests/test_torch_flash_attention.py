@@ -360,7 +360,7 @@ def test_kernel_keeps_its_accumulators_in_registers(cuda, d, train, dtype):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    q, k, v, bias = _torch(*_inputs(1, 2, 8, 8, 12, padded=False), device=cuda)
+    q, k, v, bias = _torch(*_inputs(1, 2, 8, 8, 264, padded=False), device=cuda)
     with pytest.raises(ValueError, match='head width'):
         flash_attention(q, k, v, bias)
     q, k, v, bias = _torch(*_inputs(1, 2, 8, 8, 16, padded=False), device=cuda)

@@ -16,6 +16,13 @@ all round to zero.
 first request, through the same encode and decode → waveform pass, so no
 request pays a shape's first-call costs (the kernels' load, cuBLAS/cuDNN
 handles and plans, the caching allocator's growth, the DFT bases).
+
+``mesh=`` (``parallel.make_mesh``'s devices) spreads each chunk over a copy
+of the model (and vocoder) on each device, as the JAX package shards a
+chunk's batch over its mesh's ``data`` axis: batch buckets start at the
+number of devices, each device takes a contiguous share of the chunk's
+rows, and every share decodes at the chunk's one frame bucket, so the wavs
+are those of one device. The caller's model is not moved.
 """
 from typing import List, Sequence
 
@@ -23,18 +30,33 @@ import numpy as np
 import torch
 
 from transformertts_torch.models.forward_tts import FRAME_BUCKET, TOKEN_BUCKET
+from transformertts_torch.parallel.mesh import replicate
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _batch_bucket(b: int, max_batch: int) -> int:
-    """Round a chunk size up to a power of two, at most ``max_batch``."""
-    p = 1
+def _batch_bucket(b: int, max_batch: int, min_batch: int = 1) -> int:
+    """Round a chunk size up to a power-of-two multiple of ``min_batch``
+    (the number of devices, so every bucket divides over them), at most
+    ``max_batch``."""
+    if b >= max_batch:
+        return max_batch
+    p = max(1, min_batch)
     while p < b:
         p *= 2
     return min(p, max_batch)
+
+
+def _replicas(model, vocoder, mesh) -> list:
+    """(model, vocoder) on each device of ``mesh``: the caller's own where
+    they already lie, copies elsewhere; just the caller's without a mesh."""
+    if mesh is None:
+        return [(model, vocoder)]
+    models = replicate(model, mesh)
+    vocoders = replicate(vocoder, mesh) if vocoder is not None else [None] * len(mesh)
+    return list(zip(models, vocoders))
 
 
 def encode_chunk(model, tok: np.ndarray, n_rows: int, scalar: float = 1.0):
@@ -45,7 +67,7 @@ def encode_chunk(model, tok: np.ndarray, n_rows: int, scalar: float = 1.0):
     enc = model.encode(torch.as_tensor(tok, device=model.device))
     use = model.scaled_durations(enc, scalar)
     totals = np.round(use.cpu().numpy()).sum(axis=1).astype(int) + 1
-    return enc, use, totals, _round_up(int(totals[:n_rows].max()), FRAME_BUCKET)
+    return enc, use, totals, _round_up(int(totals[:n_rows].max(initial=1)), FRAME_BUCKET)
 
 
 def decode_to_wav(model, audio, enc: dict, use: torch.Tensor, frames: int,
@@ -62,17 +84,38 @@ def decode_to_wav(model, audio, enc: dict, use: torch.Tensor, frames: int,
     return model.peak_normalize(audio.mels_to_waveforms(mel, n_iter)), audio.hop_length
 
 
+def _run_chunk(replicas, audio, tok: np.ndarray, n_rows: int, scalar: float, n_iter: int):
+    """A chunk's padded tokens (its first ``n_rows`` rows real) split into
+    contiguous shares, one a replica: each share encoded, then decoded at
+    the chunk's one frame bucket, the largest any real row needs. Returns
+    (wavs (B, samples) on the host, each row's frame total, the hop)."""
+    shares = np.split(tok, len(replicas))
+    per = len(tok) // len(replicas)
+    encoded = [encode_chunk(model, share, min(max(n_rows - i * per, 0), per), scalar)
+               for i, ((model, _), share) in enumerate(zip(replicas, shares))]
+    frames = max(e[3] for e in encoded)
+    decoded = [decode_to_wav(model, audio, enc, use, frames, n_iter, vocoder)
+               for (model, vocoder), (enc, use, _, _) in zip(replicas, encoded)]
+    wav = np.concatenate([w.cpu().numpy() for w, _ in decoded])
+    return wav, np.concatenate([e[2] for e in encoded]), decoded[0][1]
+
+
 @torch.inference_mode()
 def synthesize_lines(model, audio, lines: Sequence[str],
                      speed_regulator: float = 1.0, n_iter: int = None,
-                     max_batch: int = 32, vocoder=None) -> List[np.ndarray]:
+                     max_batch: int = 32, vocoder=None, mesh=None) -> List[np.ndarray]:
     """Synthesize many sentences on ``model.device``; returns float32 wavs
     (peak-normalized to [-1, 1]) in input order, each at least one hop
     (``audio.hop_length``, or ``vocoder.hop_length`` with a vocoder) long. A
     line that tokenizes to nothing gives an empty wav, as in the JAX
     package. ``vocoder``: a neural vocoder on the model's device, in place
-    of Griffin-Lim; the model must be MelGAN-normalized."""
+    of Griffin-Lim; the model must be MelGAN-normalized. ``mesh``: the
+    devices (``parallel.make_mesh``) each chunk is spread over;
+    ``max_batch`` is then rounded up to a multiple of their number."""
     n_iter = n_iter if n_iter is not None else audio.griffin_lim_iters
+    replicas = _replicas(model, vocoder, mesh)
+    n_data = len(replicas)
+    max_batch = _round_up(max_batch, n_data)
     scalar = float(np.float32(1.0 / speed_regulator))
     wavs: List[np.ndarray] = [None] * len(lines)
     entries = []   # (input index, tokens)
@@ -87,12 +130,10 @@ def synthesize_lines(model, audio, lines: Sequence[str],
     for s in range(0, len(entries), max_batch):
         chunk = entries[s:s + max_batch]
         n_tok = _round_up(max(len(t) for _, t in chunk), TOKEN_BUCKET)
-        tok = np.zeros((_batch_bucket(len(chunk), max_batch), n_tok), np.int64)
+        tok = np.zeros((_batch_bucket(len(chunk), max_batch, n_data), n_tok), np.int64)
         for row, (_, t) in enumerate(chunk):
             tok[row, :len(t)] = t
-        enc, use, totals, frames = encode_chunk(model, tok, len(chunk), scalar)
-        wav, hop = decode_to_wav(model, audio, enc, use, frames, n_iter, vocoder)
-        wav = wav.cpu().numpy()
+        wav, totals, hop = _run_chunk(replicas, audio, tok, len(chunk), scalar, n_iter)
         for row, (orig_idx, _) in enumerate(chunk):
             frames_kept = max(1, int(totals[row]) - 1)
             wavs[orig_idx] = wav[row, :frames_kept * hop]
@@ -104,29 +145,36 @@ def warmup_serving(model, audio, max_batch: int = 32,
                    token_buckets: Sequence[int] = (32, 64, 96, 128),
                    frame_buckets: Sequence[int] = (128, 256, 384),
                    n_iter: int = None, vocoder=None,
-                   include_ragged_batches: bool = True) -> int:
+                   include_ragged_batches: bool = True, mesh=None) -> int:
     """Run the serving menu once so that no request pays a shape's first
     call: for each batch bucket (``max_batch``, and with
     ``include_ragged_batches`` the powers of two below it, which the last
     chunk of a request takes) and each token bucket, one ``encode_chunk`` on
     all-ones tokens, then for each frame bucket the decode → waveform pass
-    ``synthesize_lines`` runs (Griffin-Lim, or ``vocoder``). Waits for the
-    device and returns the number of (batch, token, frame) combinations
-    warmed."""
+    ``synthesize_lines`` runs (Griffin-Lim, or ``vocoder``). With ``mesh``,
+    the buckets ``synthesize_lines(mesh=)`` takes, each on every device's
+    share. Waits for the devices and returns the number of (batch, token,
+    frame) combinations warmed."""
     n_iter = n_iter if n_iter is not None else audio.griffin_lim_iters
+    replicas = _replicas(model, vocoder, mesh)
+    n_data = len(replicas)
+    max_batch = _round_up(max_batch, n_data)
     batches = [max_batch]
     if include_ragged_batches:
-        p = 1
+        p = n_data
         while p < max_batch:
             batches.append(p)
             p *= 2
     count = 0
     for b in batches:
         for n_tok in token_buckets:
-            enc, use, _, _ = encode_chunk(model, np.ones((b, n_tok), np.int64), b)
+            share = np.ones((b // n_data, n_tok), np.int64)
+            encoded = [encode_chunk(m, share, len(share)) for m, _ in replicas]
             for frames in frame_buckets:
-                decode_to_wav(model, audio, enc, use, frames, n_iter, vocoder)
+                for (m, voc), (enc, use, _, _) in zip(replicas, encoded):
+                    decode_to_wav(m, audio, enc, use, frames, n_iter, voc)
                 count += 1
-    if model.device.type == 'cuda':
-        torch.cuda.synchronize(model.device)
+    for m, _ in replicas:
+        if m.device.type == 'cuda':
+            torch.cuda.synchronize(m.device)
     return count

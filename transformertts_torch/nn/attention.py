@@ -13,7 +13,9 @@ Two paths compute the same function:
   which never materialize the weights: ``flash_attention`` (K1) when no
   gradient is taken (synthesis, validation, the Aligner's inference),
   ``flash_attention_trainable`` (K2, with K3/K4 in the backward) when one
-  is, or when training drops out weights.
+  is, or when training drops out weights. A head wider than the kernels
+  take (``MAX_HEAD_WIDTH``, 256) runs the eager path here too: the choice
+  depends on the shape alone, on either device.
 
 Masks are key masks, (B or 1, 1, 1, Tk) with 1 = masked; ``causal`` adds the
 look-ahead mask. The eager path combines the two as the JAX package does,
@@ -35,7 +37,8 @@ import torch
 from torch import nn
 
 from transformertts_torch.nn import core, masks
-from transformertts_torch.ops.flash_attention import (NEG_INF, flash_attention,
+from transformertts_torch.ops.flash_attention import (MAX_HEAD_WIDTH, NEG_INF,
+                                                      flash_attention,
                                                       flash_attention_trainable)
 
 
@@ -88,14 +91,17 @@ class MultiHeadAttention(nn.Module):
     def _attend(self, q, k, v, mask, need_weights: bool, causal: bool = False,
                 training: bool = False, generator: Optional[torch.Generator] = None):
         """Split-head q (B,H,Tq,D), k/v (B,H,Tk,D) and a key mask → (merged
-        output (B,Tq,d), weights (B,H,Tq,Tk) or None)."""
+        output (B,Tq,d), weights (B,H,Tq,Tk) or None). A head wider than
+        the kernels take goes to the eager path, which is this module's own
+        plain attention: the width is one the kernels do not serve."""
         rate = self.dropout_rate if training else 0.0
-        if need_weights:
+        if need_weights or q.shape[-1] > MAX_HEAD_WIDTH:
             if causal:
                 look_ahead = masks.look_ahead_mask(q.shape[2], q.device)
                 mask = look_ahead if mask is None else torch.maximum(mask, look_ahead)
             attn, weights = scaled_dot_product_attention(q, k, v, mask, rate, generator,
                                                          training)
+            weights = weights if need_weights else None
         else:
             b, tk = k.shape[0], k.shape[2]
             if mask is None:

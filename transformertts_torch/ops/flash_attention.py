@@ -30,6 +30,14 @@ The bias is the (B, Tk) additive key mask, 0 or ``NEG_INF``; ``causal`` sets
 the logits of keys after the query to ``NEG_INF``. Keys at or beyond Tk take
 no part in the softmax, so a fully masked row is the mean of v, finite, and
 its gradients are those of that mean, finite.
+
+Every wrapper takes any head width D up to ``MAX_HEAD_WIDTH`` (256) and
+raises above it. The kernels take multiples of 8, so a wrapper zero-pads q,
+k, v (and in the backward O and dO) up to the next multiple of 8, keeps the
+scale at 1/√(true D), and slices its outputs back to D, on either device, as
+the JAX kernels pad D (``transformertts_tpu/ops/flash_attention.py:101``,
+``:244``): zero columns add nothing to q·kᵀ and come out as zero columns of
+the output and of the gradients.
 """
 import ctypes
 import functools
@@ -38,14 +46,34 @@ import math
 import torch
 
 NEG_INF = -1e9
+MAX_HEAD_WIDTH = 256   # the widest head the kernels take
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor, causal: bool = False) -> torch.Tensor:
-    """Eager reference: q (B,H,Tq,D), k/v (B,H,Tk,D), bias (B,Tk) → (B,H,Tq,D)."""
+def _head_width(q: torch.Tensor) -> int:
     d = q.shape[-1]
+    if not 1 <= d <= MAX_HEAD_WIDTH:
+        raise ValueError(f'flash_attention: head width {d} is not in [1, {MAX_HEAD_WIDTH}]')
+    return d
+
+
+def _pad_width(*xs: torch.Tensor):
+    """The tensors with their last dim zero-padded to the next multiple of 8."""
+    d = xs[0].shape[-1]
+    width = -(-d // 8) * 8
+    if width == d:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, width - d)) for x in xs)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, causal: bool = False,
+                    head_width: int = None) -> torch.Tensor:
+    """Eager reference: q (B,H,Tq,D), k/v (B,H,Tk,D), bias (B,Tk) → (B,H,Tq,D).
+    ``head_width``: the width the scale 1/√head_width is taken from (a
+    zero-padded input's true D); q's by default."""
+    d = head_width or q.shape[-1]
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
     logits = logits + bias[:, None, None, :].float()
     if causal:
@@ -75,9 +103,9 @@ def _check(q, k, v, bias):
         raise ValueError(f'flash_attention: shapes q {tuple(q.shape)}, k '
                          f'{tuple(k.shape)}, v {tuple(v.shape)}, bias '
                          f'{tuple(bias.shape)} do not agree')
-    if d % 8 != 0 or not 8 <= d <= 256:
+    if d % 8 != 0 or not 8 <= d <= MAX_HEAD_WIDTH:
         raise ValueError(f'flash_attention: head width {d} must be a multiple '
-                         f'of 8 in [8, 256]')
+                         f'of 8 in [8, {MAX_HEAD_WIDTH}]')
     if min(tq, tk) < 1:
         raise ValueError('flash_attention: empty sequence')
     if not all(x.is_contiguous() for x in (q, k, v, bias)):
@@ -106,23 +134,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns (B,H,Tq,D) in q's dtype. On a CPU tensor this is
     ``attention_plain``; on a CUDA tensor it launches the kernel and counts
-    the launch in ``flash_attention.launches``.
+    the launch in ``flash_attention.launches``. D is padded to a multiple of
+    8 on the way in and sliced back on the way out.
     """
+    d = _head_width(q)
+    q, k, v = _pad_width(q, k, v)
     if q.device.type == 'cpu':
-        return attention_plain(q, k, v, bias, causal)
+        return attention_plain(q, k, v, bias, causal, d)[..., :d]
     _check(q, k, v, bias)
-    b, h, tq, d = q.shape
+    b, h, tq, width = q.shape
     out = torch.empty_like(q)
     fn = _entry('flash_attention_fwd', 'flash_attention_fwd', 5, False)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), b, h, tq, k.shape[2], d, int(causal),
+                 out.data_ptr(), b, h, tq, k.shape[2], width, int(causal),
                  _DTYPES[q.dtype], 1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f'flash_attention_fwd launch failed: error {err}')
     flash_attention.launches += 1
-    return out
+    return out[..., :d]
 
 
 flash_attention.launches = 0
@@ -193,8 +224,9 @@ def _look_ahead(tq: int, tk: int, device) -> torch.Tensor:
             > torch.arange(tq, device=device)[:, None])
 
 
-def _logits(q, k, bias, causal):
-    logits = torch.matmul(_acc(q), _acc(k).transpose(-1, -2)) / math.sqrt(q.shape[-1])
+def _logits(q, k, bias, causal, head_width=None):
+    logits = (torch.matmul(_acc(q), _acc(k).transpose(-1, -2))
+              / math.sqrt(head_width or q.shape[-1]))
     logits = logits + _acc(bias)[:, None, None, :]
     if causal:
         logits = logits.masked_fill(_look_ahead(*logits.shape[-2:], q.device), NEG_INF)
@@ -212,11 +244,13 @@ def _dropout_scale(q, k, rate, seed, offset):
 
 
 def attention_fwd_lse_plain(q, k, v, bias, causal: bool = False,
-                            dropout_rate: float = 0.0, seed: int = 0, offset: int = 0):
+                            dropout_rate: float = 0.0, seed: int = 0, offset: int = 0,
+                            head_width: int = None):
     """Eager K2: (out (B,H,Tq,D) in q's dtype, lse (B,H,Tq,2) float32, or
     float64 for float64 inputs). ``lse[..., 0]`` is the row's max logit m,
-    ``lse[..., 1]`` log Σ exp(x − m); their sum is the row's logsumexp."""
-    logits = _logits(q, k, bias, causal)
+    ``lse[..., 1]`` log Σ exp(x − m); their sum is the row's logsumexp.
+    ``head_width`` as for ``attention_plain``."""
+    logits = _logits(q, k, bias, causal, head_width)
     m = logits.amax(dim=-1, keepdim=True)
     e = torch.exp(logits - m)
     total = e.sum(dim=-1, keepdim=True)
@@ -229,7 +263,8 @@ def attention_fwd_lse_plain(q, k, v, bias, causal: bool = False,
 
 
 def attention_bwd_plain(q, k, v, bias, out, lse, dout, causal: bool = False,
-                        dropout_rate: float = 0.0, seed: int = 0, offset: int = 0):
+                        dropout_rate: float = 0.0, seed: int = 0, offset: int = 0,
+                        head_width: int = None):
     """Eager K3 + K4 from the formulas of the JAX flash backward, with the
     weights P = exp((x − m) − log l) recomputed from ``lse`` = (m, log l)
     (clamped at 0: exact, as x ≤ m and l ≥ 1) and the dropout mask M
@@ -237,8 +272,9 @@ def attention_bwd_plain(q, k, v, bias, out, lse, dout, causal: bool = False,
     dV = (P∘M)ᵀdO, dS = P∘((dO·Vᵀ)∘M − D), dQ = dS·K/√d, dK = dSᵀ·Q/√d,
     with D = rowsum(dO∘O), and dS = 0 at the causal look-ahead, whose logit
     is the constant −1e9 (its P is 0 unless the whole row is masked).
-    Returns (dq, dk, dv) in q's dtype."""
-    x = _logits(q, k, bias, causal)
+    ``head_width`` as for ``attention_plain``. Returns (dq, dk, dv) in q's
+    dtype."""
+    x = _logits(q, k, bias, causal, head_width)
     p = torch.exp(torch.clamp_max(x - lse[..., :1] - lse[..., 1:], 0.0))
     do = _acc(dout)
     dsum = (do * _acc(out)).sum(dim=-1, keepdim=True)
@@ -249,7 +285,7 @@ def attention_bwd_plain(q, k, v, bias, out, lse, dout, causal: bool = False,
     ds = p * (dp - dsum)
     if causal:
         ds = ds.masked_fill(_look_ahead(*ds.shape[-2:], q.device), 0.0)
-    inv = 1.0 / math.sqrt(q.shape[-1])
+    inv = 1.0 / math.sqrt(head_width or q.shape[-1])
     dq = torch.matmul(ds, _acc(k)) * inv
     dk = torch.matmul(ds.transpose(-1, -2), _acc(q)) * inv
     dv = torch.matmul(pd.transpose(-1, -2), do)
@@ -272,11 +308,21 @@ def flash_attention_fwd_lse(q, k, v, bias, causal: bool = False,
                             dropout_rate: float = 0.0, seed: int = 0, offset: int = 0):
     """K2: (out, lse) as ``attention_fwd_lse_plain``. A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel (counted in
-    ``flash_attention_fwd_lse.launches``) or raises."""
+    ``flash_attention_fwd_lse.launches``) or raises. D is padded as for
+    ``flash_attention``."""
+    d = _head_width(q)
+    out, lse = _fwd_lse_padded(*_pad_width(q, k, v), bias, causal, dropout_rate, seed,
+                               offset, d)
+    return out[..., :d], lse
+
+
+def _fwd_lse_padded(q, k, v, bias, causal, dropout_rate, seed, offset, d):
+    """K2 on q, k, v already padded to a multiple of 8, with true width
+    ``d``: the padded out and lse."""
     if q.device.type == 'cpu':
-        return attention_fwd_lse_plain(q, k, v, bias, causal, dropout_rate, seed, offset)
+        return attention_fwd_lse_plain(q, k, v, bias, causal, dropout_rate, seed, offset, d)
     _check(q, k, v, bias)
-    b, h, tq, d = q.shape
+    b, h, tq, width = q.shape
     thr, keep_scale = _dropout_params(dropout_rate)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, tq, 2, device=q.device, dtype=torch.float32)
@@ -284,7 +330,7 @@ def flash_attention_fwd_lse(q, k, v, bias, causal: bool = False,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), b, h, tq, k.shape[2], d, int(causal),
+                 out.data_ptr(), lse.data_ptr(), b, h, tq, k.shape[2], width, int(causal),
                  _DTYPES[q.dtype], 1.0 / math.sqrt(d), _dropout_key(seed, offset), thr,
                  keep_scale, stream)
     if err != 0:
@@ -299,12 +345,12 @@ def row_dot(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_bwd(name, outputs, q, k, v, bias, out, lse, dout, causal, dropout_rate,
-                seed, offset, dsum):
+                seed, offset, dsum, head_width):
     _check(q, k, v, bias)
     _check_bwd((q, k, v, bias, out, lse, dout))
     if dout.dtype != q.dtype:
         raise TypeError('flash attention backward: dout takes q\'s dtype')
-    b, h, tq, d = q.shape
+    b, h, tq, width = q.shape
     thr, keep_scale = _dropout_params(dropout_rate)
     if dsum is None:
         dsum = row_dot(dout, out)
@@ -313,8 +359,8 @@ def _launch_bwd(name, outputs, q, k, v, bias, out, lse, dout, causal, dropout_ra
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-                 *(o.data_ptr() for o in outputs), b, h, tq, k.shape[2], d,
-                 int(causal), _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+                 *(o.data_ptr() for o in outputs), b, h, tq, k.shape[2], width,
+                 int(causal), _DTYPES[q.dtype], 1.0 / math.sqrt(head_width),
                  _dropout_key(seed, offset), thr, keep_scale, stream)
     if err != 0:
         raise RuntimeError(f'{name} launch failed: error {err}')
@@ -325,13 +371,24 @@ def flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, causal: bool = False,
                            dsum=None):
     """K3: dq as ``attention_bwd_plain``. CPU tensors run the plain version;
     a CUDA tensor launches the kernel (``flash_attention_bwd_dq.launches``)
-    or raises. ``dsum``, ``row_dot(dout, out)``, is computed when not given."""
+    or raises. ``dsum``, ``row_dot(dout, out)``, is computed when not given.
+    D is padded as for ``flash_attention``, O and dO with it."""
+    d = _head_width(q)
+    padded = _pad_width(q, k, v, out, dout)
+    return _bwd_dq_padded(*padded[:3], bias, padded[3], lse, padded[4], causal,
+                          dropout_rate, seed, offset, dsum, d)[..., :d]
+
+
+def _bwd_dq_padded(q, k, v, bias, out, lse, dout, causal, dropout_rate, seed, offset,
+                   dsum, d):
+    """K3 on inputs already padded to a multiple of 8, with true width
+    ``d``: the padded dq."""
     if q.device.type == 'cpu':
         return attention_bwd_plain(q, k, v, bias, out, lse, dout, causal,
-                                   dropout_rate, seed, offset)[0]
+                                   dropout_rate, seed, offset, d)[0]
     dq = torch.empty_like(q)
     _launch_bwd('flash_attention_bwd_dq', (dq,), q, k, v, bias, out, lse, dout,
-                causal, dropout_rate, seed, offset, dsum)
+                causal, dropout_rate, seed, offset, dsum, d)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -341,13 +398,24 @@ def flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, causal: bool = False,
                             dsum=None):
     """K4: (dk, dv) as ``attention_bwd_plain``. CPU tensors run the plain
     version; a CUDA tensor launches the kernel
-    (``flash_attention_bwd_dkv.launches``) or raises. ``dsum`` as for K3."""
+    (``flash_attention_bwd_dkv.launches``) or raises. ``dsum`` and the
+    padding of D as for K3."""
+    d = _head_width(q)
+    padded = _pad_width(q, k, v, out, dout)
+    dk, dv = _bwd_dkv_padded(*padded[:3], bias, padded[3], lse, padded[4], causal,
+                             dropout_rate, seed, offset, dsum, d)
+    return dk[..., :d], dv[..., :d]
+
+
+def _bwd_dkv_padded(q, k, v, bias, out, lse, dout, causal, dropout_rate, seed, offset,
+                    dsum, d):
+    """K4 on inputs already padded, as ``_bwd_dq_padded``: the padded dk, dv."""
     if q.device.type == 'cpu':
         return attention_bwd_plain(q, k, v, bias, out, lse, dout, causal,
-                                   dropout_rate, seed, offset)[1:]
+                                   dropout_rate, seed, offset, d)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd('flash_attention_bwd_dkv', (dk, dv), q, k, v, bias, out, lse, dout,
-                causal, dropout_rate, seed, offset, dsum)
+                causal, dropout_rate, seed, offset, dsum, d)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -389,25 +457,31 @@ def dkv_resources(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
 
 
 class _FlashAttention(torch.autograd.Function):
+    """K2 forward, K3 + K4 backward. D is padded once here: the forward saves
+    the padded q, k, v and O, the backward pads dO once and slices dQ, dK and
+    dV back to D."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, dropout_rate, seed, offset):
-        out, lse = flash_attention_fwd_lse(q, k, v, bias, causal, dropout_rate,
-                                           seed, offset)
+        d = _head_width(q)
+        q, k, v = _pad_width(q, k, v)
+        out, lse = _fwd_lse_padded(q, k, v, bias, causal, dropout_rate, seed, offset, d)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.args = (causal, dropout_rate, seed, offset)
-        return out
+        ctx.d = d
+        return out[..., :d] if out.shape[-1] != d else out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        args = (q, k, v, bias, out, lse, dout, *ctx.args)
+        d = ctx.d
+        (dout,) = _pad_width(dout.contiguous())
         dsum = row_dot(dout, out)
-        dq = flash_attention_bwd_dq(*args, dsum=dsum)
-        dk, dv = flash_attention_bwd_dkv(*args, dsum=dsum)
+        args = (q, k, v, bias, out, lse, dout, *ctx.args, dsum, d)
+        dq = _bwd_dq_padded(*args)
+        dk, dv = _bwd_dkv_padded(*args)
         # the bias is a mask, not a parameter: no gradient, as in the TPU design
-        return dq, dk, dv, None, None, None, None, None
+        return dq[..., :d], dk[..., :d], dv[..., :d], None, None, None, None, None
 
 
 def draw_seed_offset(generator: torch.Generator):

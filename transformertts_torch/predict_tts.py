@@ -3,20 +3,24 @@
     python -m transformertts_torch.predict_tts -p <model_dir> -t "some text" [-o outdir]
     python -m transformertts_torch.predict_tts -p <model_dir> -f lines.txt [--per_line] [-s]
     python -m transformertts_torch.predict_tts --step 95000 -f lines.txt --vocoder <ckpt>
+    python -m transformertts_torch.predict_tts -p <model_dir> -f lines.txt --data_parallel 2
 
-The flags are those of the JAX package's ``predict_tts.py`` but
-``--data_parallel``, plus ``--device`` (default ``cuda``). The model dir is
+The flags are those of the JAX package's ``predict_tts.py``, plus
+``--device`` (default ``cuda``). The model dir is
 one that either package saved; without ``-p`` the published LJSpeech model
 at ``--step`` is found by ``models/factory.py::tts_ljspeech``. ``--vocoder``
 names a MelGAN or HiFi-GAN torch checkpoint, which then makes the waveform
 in place of Griffin-Lim. Several lines run batched through
 ``synthesize_lines`` unless ``--per_line`` or ``--store_mel`` asks for one
-``predict`` per line.
+``predict`` per line. ``--data_parallel N`` spreads the batched path's
+chunks over the first N cards (``parallel.make_mesh``; N copies of the CPU
+with ``--device cpu``); N larger than the number of cards raises.
 """
 from argparse import ArgumentParser
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from transformertts_torch.audio import Audio
 from transformertts_torch.models import ForwardTransformer
@@ -40,6 +44,10 @@ def main(argv=None):
                         help='a MelGAN (seungwonpark/melgan) or HiFi-GAN (jik876/hifi-gan) '
                              'torch checkpoint, which makes the waveform in place of '
                              'Griffin-Lim')
+    parser.add_argument('--data_parallel', dest='data_parallel', default=None, type=int,
+                        help='spread batched synthesis over the first N cards (N copies of '
+                             'the CPU with --device cpu): a data-parallel mesh, batched path '
+                             'only')
     parser.add_argument('--device', dest='device', default='cuda', type=str)
     args = parser.parse_args(argv)
 
@@ -52,6 +60,12 @@ def main(argv=None):
         fname = 'custom_text'
     else:
         parser.error('specify an input text (-t "some text") or a text file (-f file.txt)')
+    mesh = None
+    if args.data_parallel is not None:
+        from transformertts_torch.parallel import MeshConfig, make_mesh
+        on_cpu = torch.device(args.device).type == 'cpu'
+        mesh = make_mesh(MeshConfig(data=args.data_parallel),
+                         [args.device] * args.data_parallel if on_cpu else None)
 
     if args.path is not None:
         print(f'Loading model from {args.path}')
@@ -75,7 +89,9 @@ def main(argv=None):
     lines = [line for line in text if line.strip()]
     if not args.per_line and not args.store_mel and len(lines) > 1:
         from transformertts_torch.models.synthesis import synthesize_lines
-        wavs = synthesize_lines(model, audio, lines, vocoder=vocoder)
+        if mesh is not None:
+            print(f'Serving over a {len(mesh)}-device data-parallel mesh')
+        wavs = synthesize_lines(model, audio, lines, vocoder=vocoder, mesh=mesh)
         if args.single:
             for i, wav in enumerate(wavs):
                 audio.save_wav(wav, (outdir / f'{file_name}_{i}').with_suffix('.wav'))

@@ -1,8 +1,9 @@
 """Stage-2 CLI: Aligner training with the PyTorch port.
 
     python -m transformertts_torch.train_aligner --config <session.yaml> [--device cuda]
+    torchrun --nproc_per_node N -m transformertts_torch.train_aligner --config <session.yaml>
 
-The counterpart of the root ``train_aligner.py``, on one device: the
+The counterpart of the root ``train_aligner.py``: the
 bucketed Aligner dataset over the featurized mels (``data/datasets.py``),
 one Adam step a batch at the reduction factor r of the config's schedule,
 diagonal forcing of the encoder's and the decoder's attention for the
@@ -22,6 +23,13 @@ CLI, a failed validation is printed and training goes on; ``main`` returns
 the validation losses by step, so a caller can tell. Images need
 matplotlib and are left out where it is not installed; the profiler window
 of the JAX CLI is not ported.
+
+Under torchrun the config's ``mesh`` trains data-parallel as
+``train_tts`` does: the same seeded loader on every rank, rank 0 alone
+writing, every rank resuming from the same checkpoint. The trainer returns
+the whole batch's maps, so the attention scores and the extraction in
+validation drop the rows that pad a bucket or the mesh, as the JAX CLI
+does.
 """
 import importlib.util
 import sys
@@ -35,6 +43,7 @@ import tqdm
 from transformertts_torch.audio import Audio
 from transformertts_torch.data.datasets import AlignerDataset, AlignerPreprocessor
 from transformertts_torch.ops.duration_extraction import get_durations_from_alignment
+from transformertts_torch.parallel.mesh import destroy_distributed, local_device
 from transformertts_torch.training import checkpointing
 from transformertts_torch.utils.config import TrainingConfigManager
 from transformertts_torch.utils.decorators import ignore_exception, time_it
@@ -69,7 +78,7 @@ def validate(trainer, val_dataset, summary_manager, step, audio: Audio, model,
              plots: bool):
     """Mean validation loss at r = 1, so that the duration diagnostics hold
     throughout training; the attention heads, durations and snippets of the
-    last batch."""
+    last batch, unless ``summary_manager`` is None (a rank other than 0)."""
     total, n, last = 0.0, 0, None
     for batch in val_dataset.all_batches():
         aux = trainer.val_step(batch, r=1)
@@ -78,6 +87,8 @@ def validate(trainer, val_dataset, summary_manager, step, audio: Audio, model,
         last = (batch, aux)
     if not n:
         return None
+    if summary_manager is None:
+        return total / n
     summary_manager.add_scalar('Validation/loss', total / n, step)
     batch, aux = last
     if plots:
@@ -148,27 +159,42 @@ def log_attention_scores(aux, batch, r: int, summary_manager, step, plots: bool)
 
 def main(argv=None) -> dict:
     """Train to the config's ``max_steps``; returns {step: validation loss}
-    of the validations that produced one."""
+    of the validations that produced one. A process group this call brings
+    up, it takes down."""
     parser = basic_train_parser()
     parser.add_argument('--device', default='cuda',
-                        help="torch device to train on: 'cuda' (the kernels) or 'cpu'")
+                        help="torch device to train on: 'cuda' (the kernels; cuda:LOCAL_RANK "
+                             "under torchrun) or 'cpu'")
     args = parser.parse_args(argv)
-    device = torch.device(args.device)
+    device = local_device(args.device)
     if device.type == 'cuda':
         print(f'device: {torch.cuda.get_device_name(device)}')
     else:
         print(f'device: {device}')
-
+    grouped = torch.distributed.is_initialized()
     cm = TrainingConfigManager(args.config, aligner=True)
-    cm.create_remove_dirs(clear_dir=args.reset_dir, clear_logs=args.reset_logs,
-                          clear_weights=args.reset_weights, assume_yes=args.yes)
-    cm.dump_config()
-    cm.print_config()
+    try:
+        return train(cm, args, device)
+    finally:
+        if not grouped:
+            destroy_distributed()
+
+
+def train(cm, args, device) -> dict:
+    mesh = cm.get_mesh(device)
+    if mesh.is_main:
+        cm.create_remove_dirs(clear_dir=args.reset_dir, clear_logs=args.reset_logs,
+                              clear_weights=args.reset_weights, assume_yes=args.yes)
+        cm.dump_config()
+        cm.print_config()
+    mesh.barrier()
+    if mesh.grouped:
+        print(f'rank {mesh.rank} of {mesh.size}, data-parallel')
     config = cm.config
 
     model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(INIT_SEED))
     model.to(device)
-    trainer = cm.get_trainer(model)
+    trainer = cm.get_trainer(model, mesh)
     restored = checkpointing.restore_latest(cm.weights_dir, model, trainer.optimizer)
     if restored is not None:
         trainer.step = model.step = restored
@@ -182,9 +208,10 @@ def main(argv=None) -> dict:
         bucket_batch_sizes=config['val_bucket_batch_size'],
         bucket_boundaries=config['bucket_boundaries'], shuffle=False)
     audio = Audio.from_config(config)
-    summary_manager = SummaryManager(model, cm.log_dir, config, audio=audio)
+    summary_manager = (SummaryManager(model, cm.log_dir, config, audio=audio)
+                       if mesh.is_main else None)
     plots = importlib.util.find_spec('matplotlib') is not None
-    if not plots:
+    if not plots and mesh.is_main:
         print('matplotlib is not installed: no images in the logs')
 
     max_steps = int(config['max_steps'])
@@ -200,7 +227,7 @@ def main(argv=None) -> dict:
 
     validation = {}
     t = tqdm.trange(trainer.step, max_steps, initial=trainer.step, total=max_steps,
-                    file=sys.stdout)
+                    file=sys.stdout, disable=not mesh.is_main)
 
     def log_step(step, aux, r, iter_time):
         """Logging of a finished step, called one step late so that reading
@@ -228,28 +255,30 @@ def main(argv=None) -> dict:
                                  force_decoder_diagonal=step < force_dec_steps,
                                  return_attention=plot_step)
         step = model.step = trainer.step
-        if pending is not None:
+        if pending is not None and mesh.is_main:
             log_step(*pending)
         pending = (step, {k: aux[k] for k in LOSS_KEYS}, r, time.perf_counter() - t0)
 
-        if plot_step:
+        if plot_step and mesh.is_main:
             log_attention_scores(aux, batch, r, summary_manager, step, plots)
         if step % ckpt_freq == 0:
             checkpointing.save_checkpoint(cm.weights_dir, model, trainer.optimizer, step,
-                                          keep_n=keep_n, keep_every=save_freq)
+                                          keep_n=keep_n, keep_every=save_freq, mesh=mesh)
         if step % val_freq == 0:
             result = validate(trainer, val_data, summary_manager, step, audio, model, plots)
             if result is not None:
-                summary_manager.add_scalar('Meta/validation_time', result[1], step)
+                if mesh.is_main:
+                    summary_manager.add_scalar('Meta/validation_time', result[1], step)
                 if result[0] is not None:
                     validation[step] = result[0]
-        if step % pred_freq == 0 and step >= pred_start:
+        if step % pred_freq == 0 and step >= pred_start and mesh.is_main:
             predict_test_sentences(model, summary_manager, config, step, plots)
-    if pending is not None:
+    if pending is not None and mesh.is_main:
         log_step(*pending)
     checkpointing.save_checkpoint(cm.weights_dir, model, trainer.optimizer, trainer.step,
-                                  keep_n=keep_n)
-    summary_manager.flush()
+                                  keep_n=keep_n, mesh=mesh)
+    if mesh.is_main:
+        summary_manager.flush()
     print('done')
     return validation
 

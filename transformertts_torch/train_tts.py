@@ -1,8 +1,9 @@
 """Stage-4 CLI: ForwardTransformer training with the PyTorch port.
 
     python -m transformertts_torch.train_tts --config <session.yaml> [--device cuda]
+    torchrun --nproc_per_node N -m transformertts_torch.train_tts --config <session.yaml>
 
-The counterpart of the root ``train_tts.py``, on one device: the bucketed
+The counterpart of the root ``train_tts.py``: the bucketed
 TTS dataset over the preprocessed artifacts (``data/datasets.py``, the
 port's copy of the JAX package's host data pipeline), one teacher-forced
 Adam step a batch with the learning rate of the config's schedule, losses
@@ -17,6 +18,13 @@ validation is printed and training goes on; ``main`` returns the validation
 losses by step, so a caller can tell. Mel images need matplotlib and are
 left out where it is not installed; the profiler window of the JAX CLI is
 not ported.
+
+Under torchrun the config's ``mesh: {data: -1 or N}`` trains data-parallel
+over the N processes (``parallel/mesh.py``; ``--device cuda`` is then
+``cuda:LOCAL_RANK``): every rank runs the same seeded loader and the trainer
+takes its slice of each batch; rank 0 alone writes the logs, audio, model
+dirs and checkpoints, and every rank resumes from the same checkpoint. A
+``mesh.data`` that is not the world size, or ``model`` > 1, raises.
 """
 import importlib.util
 import sys
@@ -29,6 +37,7 @@ import tqdm
 
 from transformertts_torch.audio import Audio
 from transformertts_torch.data.datasets import TTSDataset, TTSPreprocessor
+from transformertts_torch.parallel.mesh import destroy_distributed, local_device
 from transformertts_torch.training import checkpointing
 from transformertts_torch.utils.config import TrainingConfigManager
 from transformertts_torch.utils.decorators import ignore_exception, time_it
@@ -43,13 +52,15 @@ INIT_SEED = 42   # the weights of a fresh run, as the JAX CLI's PRNGKey(42)
 @ignore_exception
 @time_it
 def validate(trainer, val_dataset, summary_manager, step, plots: bool):
+    """The mean validation loss; logged with a target and its prediction
+    unless ``summary_manager`` is None (a rank other than 0)."""
     total, n, aux, batch = 0.0, 0, None, None
     for batch in val_dataset.all_batches():
         aux = trainer.val_step(batch)
         total += float(aux['loss'])
         n += 1
-    if n == 0:
-        return None
+    if n == 0 or summary_manager is None:
+        return total / n if n else None
     summary_manager.add_scalar('Validation/loss', total / n, step)
     real = batch['fname'] != ''
     if real.any():
@@ -100,27 +111,42 @@ def predict_test_sentences(model, summary_manager, config, step, plots: bool):
 
 def main(argv=None) -> dict:
     """Train to the config's ``max_steps``; returns {step: validation loss}
-    of the validations that produced one."""
+    of the validations that produced one. A process group this call brings
+    up, it takes down."""
     parser = basic_train_parser()
     parser.add_argument('--device', default='cuda',
-                        help="torch device to train on: 'cuda' (the kernels) or 'cpu'")
+                        help="torch device to train on: 'cuda' (the kernels; cuda:LOCAL_RANK "
+                             "under torchrun) or 'cpu'")
     args = parser.parse_args(argv)
-    device = torch.device(args.device)
+    device = local_device(args.device)
     if device.type == 'cuda':
         print(f'device: {torch.cuda.get_device_name(device)}')
     else:
         print(f'device: {device}')
-
+    grouped = torch.distributed.is_initialized()
     cm = TrainingConfigManager(args.config)
-    cm.create_remove_dirs(clear_dir=args.reset_dir, clear_logs=args.reset_logs,
-                          clear_weights=args.reset_weights, assume_yes=args.yes)
-    cm.dump_config()
-    cm.print_config()
+    try:
+        return train(cm, args, device)
+    finally:
+        if not grouped:
+            destroy_distributed()
+
+
+def train(cm, args, device) -> dict:
+    mesh = cm.get_mesh(device)
+    if mesh.is_main:
+        cm.create_remove_dirs(clear_dir=args.reset_dir, clear_logs=args.reset_logs,
+                              clear_weights=args.reset_weights, assume_yes=args.yes)
+        cm.dump_config()
+        cm.print_config()
+    mesh.barrier()
+    if mesh.grouped:
+        print(f'rank {mesh.rank} of {mesh.size}, data-parallel')
     config = cm.config
 
     model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(INIT_SEED))
     model.to(device)
-    trainer = cm.get_trainer(model)
+    trainer = cm.get_trainer(model, mesh)
     restored = checkpointing.restore_latest(cm.weights_dir, model, trainer.optimizer)
     if restored is not None:
         trainer.step = model.step = restored
@@ -133,10 +159,11 @@ def main(argv=None) -> dict:
     val_data = TTSDataset.from_config(cm, prep, kind='valid').get_dataset(
         bucket_batch_sizes=config['val_bucket_batch_size'],
         bucket_boundaries=config['bucket_boundaries'], shuffle=False)
-    summary_manager = SummaryManager(model, cm.log_dir, config,
-                                     audio=Audio.from_config(config))
+    summary_manager = (SummaryManager(model, cm.log_dir, config,
+                                      audio=Audio.from_config(config))
+                       if mesh.is_main else None)
     plots = importlib.util.find_spec('matplotlib') is not None
-    if not plots:
+    if not plots and mesh.is_main:
         print('matplotlib is not installed: no mel images in the logs')
 
     max_steps = int(config['max_steps'])
@@ -150,7 +177,7 @@ def main(argv=None) -> dict:
 
     fname_durs, validation = [], {}
     t = tqdm.trange(trainer.step, max_steps, initial=trainer.step, total=max_steps,
-                    file=sys.stdout)
+                    file=sys.stdout, disable=not mesh.is_main)
 
     def log_step(step, aux, batch, iter_time):
         """Logging of a finished step, called one step late so that reading
@@ -178,29 +205,33 @@ def main(argv=None) -> dict:
         batch = train_data.next_batch()
         aux = trainer.train_step(batch)
         step = trainer.step
-        if pending is not None:
+        if pending is not None and mesh.is_main:
             log_step(*pending)
         pending = (step, aux, batch, time.perf_counter() - t0)
 
         if step % ckpt_freq == 0:
             checkpointing.save_checkpoint(cm.weights_dir, model, trainer.optimizer, step,
-                                          keep_n=keep_n)
+                                          keep_n=keep_n, mesh=mesh)
         if step % save_freq == 0 and step >= save_start:
             model.step = step
-            model.save_model(cm.base_dir / f'model_step_{step}')
+            if mesh.is_main:
+                model.save_model(cm.base_dir / f'model_step_{step}')
+            mesh.barrier()
         if step % val_freq == 0:
             result = validate(trainer, val_data, summary_manager, step, plots)
             if result is not None:
-                summary_manager.add_scalar('Meta/validation_time', result[1], step)
+                if mesh.is_main:
+                    summary_manager.add_scalar('Meta/validation_time', result[1], step)
                 if result[0] is not None:
                     validation[step] = result[0]
-        if step % pred_freq == 0 and step >= pred_start:
+        if step % pred_freq == 0 and step >= pred_start and mesh.is_main:
             predict_test_sentences(model, summary_manager, config, step, plots)
-    if pending is not None:
+    if pending is not None and mesh.is_main:
         log_step(*pending)
     checkpointing.save_checkpoint(cm.weights_dir, model, trainer.optimizer, trainer.step,
-                                  keep_n=keep_n)
-    summary_manager.flush()
+                                  keep_n=keep_n, mesh=mesh)
+    if mesh.is_main:
+        summary_manager.flush()
     print('done')
     return validation
 

@@ -12,13 +12,18 @@ attention whose map nobody reads on the fused kernels: K2 forward, K3/K4
 backward, in float32 for the published Aligner (13 of each a micro-batch:
 4 encoder, 5 decoder causal self-attentions, 4 cross-attentions); the last
 block's cross-attention is eager in every step, as in inference.
+
+``mesh=`` trains over the data axis (``training/base_trainer.py``); the
+diagonal penalty then counts the real samples of the whole batch, as the
+JAX loss counts them over the whole sharded batch.
 """
+import functools
 from typing import Optional
 
 import torch
 
 from transformertts_torch.training.base_trainer import BaseTrainer
-from transformertts_torch.utils.losses import (masked_mean_absolute_error,
+from transformertts_torch.utils.losses import (global_count, masked_mean_absolute_error,
                                                new_scaled_crossentropy, weighted_sum_losses)
 from transformertts_torch.utils.metrics import batch_diagonal_mask
 
@@ -27,11 +32,13 @@ LOSS_WEIGHTS = (1.0, 1.0)  # mel, stop
 
 def aligner_loss(model, batch: dict, r: int, stop_loss, force_encoder_diagonal: bool,
                  force_decoder_diagonal: bool, training: bool,
-                 generator: Optional[torch.Generator] = None, need_weights: bool = None):
+                 generator: Optional[torch.Generator] = None, need_weights: bool = None,
+                 mesh=None):
     """Shift → stride → forward → weighted losses (+ diagonal penalties).
     Returns (total loss, (losses, model outputs)). ``need_weights`` (by
     default: when a diagonal is forced) takes the eager attention, which
-    returns every map."""
+    returns every map. With ``mesh`` every count is the whole batch's over
+    the mesh's ranks."""
     if need_weights is None:
         need_weights = force_encoder_diagonal or force_decoder_diagonal
     tokens = batch['tokens']
@@ -47,12 +54,14 @@ def aligner_loss(model, batch: dict, r: int, stop_loss, force_encoder_diagonal: 
     total, (l_mel, l_stop) = weighted_sum_losses(
         (tar_real, tar_stop),
         (out['mel'][:, :mel_len], out['stop_prob'][:, :mel_len]),
-        (masked_mean_absolute_error, stop_loss), LOSS_WEIGHTS)
+        (functools.partial(masked_mean_absolute_error, mesh=mesh),
+         functools.partial(stop_loss, mesh=mesh)), LOSS_WEIGHTS)
 
     phon_len = (1.0 - out['text_mask'][:, 0, 0, :]).sum(dim=1)
     # per REAL sample: all-zero rows that pad a bucket's batch add nothing to
     # the sum and must not grow the denominator
-    n_real = torch.clamp_min(((tokens != 0).sum(dim=1) > 0).float().sum(), 1.0)
+    n_real = torch.clamp_min(
+        global_count(((tokens != 0).sum(dim=1) > 0).float().sum(), mesh), 1.0)
 
     def diag_penalty(att, dmask):
         per_sample = (att * dmask).sum(dim=(-2, -1))      # (B, H)
@@ -87,10 +96,11 @@ class AlignerTrainer(BaseTrainer):
 
     def __init__(self, model: torch.nn.Module, learning_rate_schedule,
                  stop_scaling: float = 8.0, base_rng_seed: int = 42,
-                 grad_accumulation: int = 1, narrow_pv: bool = False):
+                 grad_accumulation: int = 1, narrow_pv: bool = False, mesh=None):
         """``narrow_pv`` is accepted and ignored: the port's kernels compute
         P·V in float32, which is the JAX trainer's ``narrow_pv: false``."""
-        super().__init__(model, learning_rate_schedule, base_rng_seed, grad_accumulation)
+        super().__init__(model, learning_rate_schedule, base_rng_seed, grad_accumulation,
+                         mesh)
         self.stop_loss = new_scaled_crossentropy(index=2, scaling=stop_scaling)
 
     def loss(self, batch, training, generator, r: int = None,
@@ -102,7 +112,7 @@ class AlignerTrainer(BaseTrainer):
                         or return_attention or not training)
         total, (losses, out) = aligner_loss(
             self.model, batch, r, self.stop_loss, force_encoder_diagonal,
-            force_decoder_diagonal, training, generator, need_weights)
+            force_decoder_diagonal, training, generator, need_weights, self.mesh)
         aux = dict(losses)
         if return_attention or not training:
             for key in ('decoder_attention', 'encoder_attention', 'text_mask', 'mel_mask'):

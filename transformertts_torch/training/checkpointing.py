@@ -8,7 +8,9 @@ schedule's count, each parameter group in the sorted order of the JAX
 parameter paths and in the JAX (Keras) layouts of ``models/persistence.py``.
 So a checkpoint written by either package resumes in the other. Files are
 written under a temporary name and renamed, so a crash never leaves a torn
-checkpoint that looks complete; ``keep_n`` prunes older ones.
+checkpoint that looks complete; ``keep_n`` prunes older ones. Under data
+parallelism (``mesh=``) rank 0 alone writes and every rank waits at a
+barrier for it; every rank restores the same file.
 """
 import os
 import re
@@ -97,12 +99,19 @@ def latest_checkpoint(directory) -> Optional[Path]:
 
 
 def save_checkpoint(directory, model, optimizer, step: int, keep_n: int = None,
-                    keep_every: int = None) -> Path:
+                    keep_every: int = None, mesh=None) -> Path:
     """Write ckpt_{step}.npz atomically; prune to the ``keep_n`` newest,
-    always keeping steps divisible by ``keep_every``."""
+    always keeping steps divisible by ``keep_every``. With ``mesh`` (a
+    ``parallel.ProcessMesh``) only its rank 0 writes, and every rank returns
+    once the file is complete."""
+    path = Path(directory) / f'ckpt_{step}.npz'
+    if mesh is not None:
+        if mesh.is_main:
+            save_checkpoint(directory, model, optimizer, step, keep_n, keep_every)
+        mesh.barrier()
+        return path
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
-    path = directory / f'ckpt_{step}.npz'
     tmp = directory / f'.tmp_ckpt_{step}.npz'
     for stale in directory.glob('.tmp_ckpt_*.npz'):
         stale.unlink(missing_ok=True)

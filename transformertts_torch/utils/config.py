@@ -10,7 +10,9 @@ model (a ForwardTransformer, or with ``aligner=True`` an Aligner at the
 reduction schedule's first r) and its trainer (a ``ForwardTrainer`` or an
 ``AlignerTrainer``) come from the merged config;
 ``load_model`` restores a model from a training checkpoint of either package.
-Models go to the card unless the caller names another device.
+Models go to the card unless the caller names another device. The config's
+``mesh: {data, model}`` and ``multihost`` select data-parallel training
+(``get_mesh``, ``parallel/mesh.py``).
 """
 import shutil
 import subprocess
@@ -123,18 +125,31 @@ class TrainingConfigManager:
                 model.step, self.config['reduction_factor_schedule']))
         return model.to(device)
 
-    def get_trainer(self, model):
-        """The trainer of this config's model kind: an ``AlignerTrainer`` or
-        a ``ForwardTrainer``."""
+    def get_mesh(self, device='cuda'):
+        """This process's place on the config's ``mesh: {data, model}``: the
+        process group of a torchrun launch, brought up for ``device`` (NCCL
+        on a card, gloo on the CPU), or one process without one. ``data``
+        must be -1 or the world size, and ``model`` 1; anything else raises.
+        ``multihost: true`` needs nothing more: torchrun's group spans hosts
+        the same way."""
+        from transformertts_torch.parallel.mesh import maybe_initialize_distributed
+        return maybe_initialize_distributed(self.config, device)
+
+    def get_trainer(self, model, mesh=None):
+        """The trainer of this config's model kind, an ``AlignerTrainer`` or
+        a ``ForwardTrainer``, over ``mesh`` (by default ``get_mesh`` for the
+        model's device)."""
+        if mesh is None:
+            mesh = self.get_mesh(next(model.parameters()).device)
         schedule = self.config['learning_rate_schedule']
         grad_accumulation = int(self.config.get('grad_accumulation', 1))
         if self.model_kind == 'aligner':
             from transformertts_torch.training.aligner_trainer import AlignerTrainer
             return AlignerTrainer(model, schedule, stop_scaling=self.stop_scaling,
                                   grad_accumulation=grad_accumulation,
-                                  narrow_pv=self.narrow_pv)
+                                  narrow_pv=self.narrow_pv, mesh=mesh)
         from transformertts_torch.training.forward_trainer import ForwardTrainer
-        return ForwardTrainer(model, schedule, grad_accumulation=grad_accumulation)
+        return ForwardTrainer(model, schedule, grad_accumulation=grad_accumulation, mesh=mesh)
 
     def create_remove_dirs(self, clear_dir: bool = False, clear_logs: bool = False,
                            clear_weights: bool = False, assume_yes: bool = False):

@@ -149,7 +149,24 @@ prints no result):
    32-line chunk both ways; and K1-K4 at head width 100, which their
    wrappers pad to 104, against the plain versions in float32 and
    bfloat16, with a head of 384 taking ``MultiHeadAttention``'s eager path;
-14. the last three lines: the kernels' JSON record (each kernel's time, its
+14. tensor parallelism (the mesh's ``model`` axis) and ZeRO-1 on the one
+   card (``model_parallel_phase``): gloo groups of 2 and 4 ranks
+   (``--mp-child``, started without torchrun's environment), every rank on
+   the card, beside one process alone; the collectives the mesh runs on
+   CUDA tensors checked first; the TTS at the published width (f32, dropout
+   0, TF32 off, B8 x 128 x 512) and the Aligner at ``DP_ALIGNER``'s depth,
+   3 steps at {1, 2}, {2, 1} and {2, 2}, each from one process's
+   checkpoint of that step (restored into the sharded state), whose losses
+   and gathered parameters and moments must be one process's within
+   stated bars; bf16
+   TTS steps at the published settings (dropout 0.1) on profile_train's
+   batch at every layout, whose losses must be finite, with each rank's
+   peak memory; K2/K3/K4 launched per rank as often as alone, the model
+   ranks of a data row holding the same replicated parameters bit for bit,
+   each data rank ⌈n/D⌉ of the Adam state; ``mesh: {data: 1, model: 2}``
+   refused under torchrun; ``profile_train`` with an NCCL group of one
+   (launches, kernel ms, peak memory);
+15. the last three lines: the kernels' JSON record (each kernel's time, its
    plain version's, one PyTorch library call's that computes the same
    function, and its bound: the larger of the FLOPs the function needs
    (for K5 an FFT's) over the card's peak rate for their type and its
@@ -302,6 +319,17 @@ DP_CHILD_TIMEOUT_S = 400
 # then rounds of four timed steps (grouped, alone, alone, grouped)
 DP_TIME_WARMUP = 5
 DP_TIME_ROUNDS = 8
+# model parallelism: gloo ranks sharing the one card
+MP_STEPS = 3
+MP_GATE_BATCH = (8, 128, 512)      # the TTS gates: B x tokens x frames, f32, dropout 0
+MP_ALIGNER_BATCH = (8, 96, 512)    # the Aligner gates (DP_ALIGNER): B x tokens x frames, r 1
+MP_MEMORY_BATCH = (32, 128, 512)   # bf16 readings: profile_train's batch
+MP_LAYOUTS = ((1, 2), (2, 1), (2, 2))
+MP_LOSS_RTOL = 1e-5
+MP_CHILD_TIMEOUT_S = 400
+MP_PROFILE_TIMEOUT_S = 300
+GLOO_COLLECTIVES = ('all_reduce', 'broadcast', 'all_gather_into_tensor',
+                    'reduce_scatter_tensor')
 
 
 def log(*args):
@@ -1580,6 +1608,7 @@ def aligner_phase(cfg) -> dict:
     from transformertts_torch.models.aligner import Aligner
     from transformertts_torch.ops.flash_attention import flash_attention
     from transformertts_torch.training import checkpointing
+    from transformertts_torch.training.state import make_optimizer
     from transformertts_torch.utils.config import TrainingConfigManager
     cm = TrainingConfigManager(cfg, aligner=True)
     seeded = cm.get_model('cpu').init_params(torch.Generator().manual_seed(SEED))
@@ -1589,8 +1618,8 @@ def aligner_phase(cfg) -> dict:
     for key, value in seeded.state_dict().items():
         if not torch.equal(model.state_dict()[key].cpu(), value):
             raise AssertionError(f'the Aligner model dir did not load back: {key}')
-    ckpt = checkpointing.save_checkpoint(cm.weights_dir, seeded,
-                                         torch.optim.Adam(seeded.parameters()), ALIGNER_R1_STEP)
+    ckpt = checkpointing.save_checkpoint(cm.weights_dir, seeded, make_optimizer(seeded),
+                                         ALIGNER_R1_STEP)
     c = model.config
     log(f'Aligner: d {c["decoder_model_dimension"]}, encoder heads {c["encoder_num_heads"]}, '
         f'decoder heads {c["decoder_num_heads"]}, feed-forward '
@@ -2123,42 +2152,63 @@ def _session_variant(cfg: Path, name: str, section: str = None, overrides: dict 
     return path
 
 
-def _train_run(kind: str, session: Path, grouped: bool) -> dict:
+def _start_train_run(kind: str, session: Path, grouped: bool, procs: list):
     """``train_child`` on ``session`` under torchrun (an NCCL group of one)
-    or alone (no group): its JSON record, and whether the CLI said it ran
-    data-parallel."""
+    or alone (no group), started and added to ``procs``; returns a function
+    that waits for it and returns its JSON record, and whether the CLI said
+    it ran on a group."""
     out = session.with_suffix('.json')
     argv = [str(ROOT / 'chip_smoke.py'), '--train-child', kind, str(session), str(out)]
     cmd = _torchrun(*argv) if grouped else [sys.executable, *argv]
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=DP_CHILD_TIMEOUT_S,
-                          env={**os.environ, 'CUBLAS_WORKSPACE_CONFIG': ':4096:8'})
-    if proc.returncode != 0:
-        raise AssertionError(f'{kind} run {"under torchrun" if grouped else "alone"} '
-                             f'failed ({proc.returncode}): {proc.stdout[-2000:]}\n'
-                             f'{proc.stderr[-4000:]}')
-    record = json.loads(out.read_text())
-    record['data_parallel'] = 'rank 0 of 1, data-parallel' in proc.stdout
-    if record['backends'] != (['nccl'] if grouped else []) \
-            or record['data_parallel'] != grouped:
-        raise AssertionError(f'{kind}: process groups {record["backends"]} '
-                             f'{"under torchrun" if grouped else "alone"}, not '
-                             f'{"one NCCL group" if grouped else "none"}')
-    return record
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, 'CUBLAS_WORKSPACE_CONFIG': ':4096:8'})
+    procs.append(proc)
+
+    def wait() -> dict:
+        try:
+            stdout, stderr = proc.communicate(timeout=DP_CHILD_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f'{kind} run {"under torchrun" if grouped else "alone"} '
+                                 f'failed ({proc.returncode}): {stdout[-2000:]}\n'
+                                 f'{stderr[-4000:]}')
+        record = json.loads(out.read_text())
+        record['data_parallel'] = 'rank 0 of 1 (data 0 of 1, model 0 of 1)' in stdout
+        if record['backends'] != (['nccl'] if grouped else []) \
+                or record['data_parallel'] != grouped:
+            raise AssertionError(f'{kind}: process groups {record["backends"]} '
+                                 f'{"under torchrun" if grouped else "alone"}, not '
+                                 f'{"one NCCL group" if grouped else "none"}')
+        return record
+
+    return wait
 
 
-def _train_pair(kind: str, cfg: Path, steps: int) -> dict:
+def _start_train_pair(kind: str, cfg: Path, steps: int, procs: list):
     """``kind``'s CLI on ``cfg`` under torchrun and alone, both with
-    deterministic algorithms: the two runs' launches and per-step losses,
-    and their final checkpoints compared leaf by leaf, which must agree bit
-    for bit."""
+    deterministic algorithms and both started at once (a run's results do
+    not depend on what else shares the card); returns a function that waits
+    for them and returns the two runs' launches and per-step losses, and
+    their final checkpoints compared leaf by leaf, which must agree bit for
+    bit."""
     from transformertts_torch.utils.config import TrainingConfigManager
-    runs = {}
+    waits, ckpts = {}, {}
     for label in ('grouped', 'single'):
         session = _session_variant(cfg, f'{kind}_{label}')
-        runs[label] = _train_run(kind, session, label == 'grouped')
+        waits[label] = _start_train_run(kind, session, label == 'grouped', procs)
         cm = TrainingConfigManager(session, aligner=kind == 'aligner')
-        runs[label]['ckpt'] = cm.weights_dir / f'ckpt_{steps}.npz'
+        ckpts[label] = cm.weights_dir / f'ckpt_{steps}.npz'
+    return lambda: _train_pair(kind, steps, waits, ckpts)
+
+
+def _train_pair(kind: str, steps: int, waits: dict, ckpts: dict) -> dict:
+    runs = {}
+    for label, wait in waits.items():
+        runs[label] = wait()
+        runs[label]['ckpt'] = ckpts[label]
     grouped, single = runs['grouped'], runs['single']
     if len(grouped['losses']) != steps or len(single['losses']) != steps:
         raise AssertionError(f'{kind}: took {len(grouped["losses"])} and '
@@ -2362,9 +2412,15 @@ def data_parallel_phase(model_dir: Path, card: str) -> dict:
                    mesh=mesh)
     cfg = write_session(work, tts, aligner_overrides=aligner)
     write_synthetic_data(TrainingConfigManager(cfg), n_train=90, n_valid=6)
-    record = {}
+    record, procs = {}, []
+    try:
+        pairs = {kind: _start_train_pair(kind, cfg, steps, procs)
+                 for kind, steps in (('tts', DP_TTS_STEPS), ('aligner', DP_ALIGNER_STEPS))}
+        entries = {kind: pair() for kind, pair in pairs.items()}
+    finally:
+        _stop(procs)
     for kind, steps in (('tts', DP_TTS_STEPS), ('aligner', DP_ALIGNER_STEPS)):
-        entry = _train_pair(kind, cfg, steps)
+        entry = entries[kind]
         log(f'data-parallel {kind} training ({card}), {steps} steps: torchrun (NCCL, world '
             f'size 1) against one process without a group, deterministic algorithms in '
             f'both: losses and final checkpoint ({entry["leaves"]} leaves) bit for bit; '
@@ -2400,25 +2456,494 @@ def data_parallel_phase(model_dir: Path, card: str) -> dict:
     return record
 
 
+def _stop(procs: list):
+    """Kill whichever of ``procs`` is still running, and reap it."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def _free_ports(n: int) -> list:
+    """``n`` distinct free local ports (all bound at once, then released)."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(('127.0.0.1', 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def _gloo_collectives(world: int) -> dict:
+    """Each collective the mesh runs, on CUDA tensors of this gloo group's
+    card in float32 and bfloat16, against the values it must give; the
+    optimizer's in-place forms too (a share of the flat buffer as the
+    reduce-scatter's output and the all-gather's input)."""
+    import torch.distributed as dist
+    rank, ok = dist.get_rank(), {}
+    total = world * (world + 1) / 2
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((8,), float(rank + 1), device=DEVICE, dtype=dtype)
+        ranks = torch.arange(1, world + 1, device=DEVICE, dtype=dtype)[:, None]
+        y = x.clone()
+        dist.all_reduce(y)
+        checks = {'all_reduce': (y == total).all()}
+        y = x.clone()
+        dist.broadcast(y, 0)
+        checks['broadcast'] = (y == 1).all()
+        g = torch.empty(8 * world, device=DEVICE, dtype=dtype)
+        dist.all_gather_into_tensor(g, x)
+        checks['all_gather_into_tensor'] = (g.view(world, 8) == ranks).all()
+        out = torch.empty(8, device=DEVICE, dtype=dtype)
+        dist.reduce_scatter_tensor(out, x.repeat(world))
+        checks['reduce_scatter_tensor'] = (out == total).all()
+        flat = x.repeat(world)
+        share = flat[rank * 8:(rank + 1) * 8]
+        dist.reduce_scatter_tensor(share, flat)
+        checks['reduce_scatter_tensor in place'] = (share == total).all()
+        flat = torch.zeros(8 * world, device=DEVICE, dtype=dtype)
+        flat[rank * 8:(rank + 1) * 8] = rank + 1
+        dist.all_gather_into_tensor(flat, flat[rank * 8:(rank + 1) * 8])
+        checks['all_gather_into_tensor in place'] = (flat.view(world, 8) == ranks).all()
+        for name, good in checks.items():
+            ok[f'{name} {str(dtype)[6:]}'] = bool(good)
+    return ok
+
+
+def _mp_nudged_spread(trainer, batch, options, start: str, leaves: dict, out: str, ops):
+    """The step from checkpoint ``start`` again, every parameter nudged one
+    float32 unit up or down (a seeded sign each): for each moment leaf, the
+    largest |difference| from the step's ``leaves``, written to ``out`` as
+    JSON. Tensor parallelism and ZeRO-1 change sums in their last bits, so
+    this is what a layout may move a moment by at the least. The kernels'
+    launch counts are put back: the nudged step is not the path's."""
+    from transformertts_torch.training import checkpointing
+    counts = _launch_counts(ops)
+    step = checkpointing.restore_checkpoint(start, trainer.model, trainer.optimizer)
+    trainer.step = step
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + step)
+    with torch.no_grad():
+        for p in trainer.model.parameters():
+            up = torch.rand(p.shape, generator=gen, device=p.device) < 0.5
+            p.copy_(torch.nextafter(p, torch.where(up, math.inf, -math.inf)))
+    trainer.train_step(batch, **options)
+    nudged = checkpointing.flatten_state(trainer.model, trainer.optimizer, trainer.step)
+    n = (len(leaves) - 3) // 3
+    spread = {key: float(np.abs(nudged[key].astype(np.float64) - leaves[key]).max(initial=0.0))
+              for key in (f'leaf_{i:05d}' for i in range(n + 2, 3 * n + 2))}
+    Path(out).write_text(json.dumps(spread))
+    for f, c in zip(ops, counts):
+        f.launches = c
+
+
+def _mp_job(job: dict) -> dict:
+    """One job of an ``mp_child`` rank: the session's model (seed
+    ``SEED``) through ``get_trainer`` on this rank's mesh, ``MP_STEPS``
+    steps on one seeded batch: the losses, the K2/K3/K4 launches (counts set
+    to 0 just before the steps), the peak memory of the last step, a digest
+    of the replicated parameters and this rank's ZeRO-1 share. A
+    ``reference`` job (one process) writes its full-width checkpoint before
+    the first step and after each (``<states>_<step>.npz``); a ``follow``
+    job restores the reference's checkpoint of each step before taking it
+    (every rank keeps its parts) and holds the gathered state after it to
+    the reference's next one (``_mp_leaf_ratios``, on rank 0), so each step
+    is compared from the same start and no difference carries over. The
+    reference also takes each step a second time from its parameters
+    nudged by one float32 unit (``_mp_nudged_spread``): how far a rounding
+    difference alone moves each moment."""
+    import gc
+    import hashlib
+    import torch.distributed as dist
+    from transformertts_torch.parallel import ProcessMesh
+    from transformertts_torch.profile_train import aligner_batch, synthetic_batch
+    from transformertts_torch.models.persistence import params_to_jax
+    from transformertts_torch.training import checkpointing
+    from transformertts_torch.training.checkpointing import _jax_order
+    from transformertts_torch.utils.config import TrainingConfigManager
+    aligner = job['kind'] == 'aligner'
+    cm = TrainingConfigManager(job['session'], aligner=aligner)
+    mesh = ProcessMesh.current(job['model']) if dist.is_initialized() else ProcessMesh()
+    model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(SEED)).to(DEVICE)
+    trainer = cm.get_trainer(model, mesh=mesh)
+    b, n_tok, frames = job['batch']
+    if aligner:
+        batch, options = aligner_batch(model, b, n_tok, frames, SEED), {'r': 1}
+    else:
+        batch, options = synthetic_batch(model, b, n_tok, frames, SEED), {}
+    states, mode = job.get('states'), job.get('mode')
+    names = _jax_order(params_to_jax(model.state_dict()))
+    if mode == 'reference':
+        np.savez(f'{states}_0.npz', **checkpointing.flatten_state(model, trainer.optimizer, 0))
+    _, ops = _trainable_ops()
+    for f in ops:
+        f.launches = 0
+    losses, ratios = [], []
+    for i in range(MP_STEPS):
+        if i == MP_STEPS - 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        if mode == 'follow':
+            trainer.step = checkpointing.restore_checkpoint(f'{states}_{i}.npz', model,
+                                                            trainer.optimizer)
+        losses.append(trainer.train_step(batch, **options)['loss'].item())
+        if mode is not None:
+            leaves = checkpointing.flatten_state(model, trainer.optimizer, trainer.step)
+            if mode == 'reference':
+                np.savez(f'{states}_{i + 1}.npz', **leaves)
+                _mp_nudged_spread(trainer, batch, options, f'{states}_{i}.npz', leaves,
+                                  f'{states}_{i + 1}.spread.json', ops)
+                trainer.step = checkpointing.restore_checkpoint(
+                    f'{states}_{i + 1}.npz', model, trainer.optimizer)
+            elif mesh.rank == 0:
+                adam = dict(trainer.optimizer.adam.defaults,
+                            lr=trainer.optimizer.param_groups[0]['lr'])
+                ratios.append(_mp_leaf_ratios(leaves, names, Path(f'{states}_{i}.npz'),
+                                              Path(f'{states}_{i + 1}.npz'), adam,
+                                              Path(f'{states}_{i + 1}.spread.json')))
+            del leaves
+    torch.cuda.synchronize()
+    record = dict(losses=losses, ratios=ratios, launches=_launch_counts(ops),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  mesh=[mesh.data_rank, mesh.data_size, mesh.model_rank, mesh.model_size])
+    replicated = [p for p in model.parameters() if not hasattr(p, 'tp_dim')]
+    record['replicated'] = hashlib.sha256(b''.join(
+        p.detach().cpu().numpy().tobytes() for p in replicated)).hexdigest()
+    record['sharded'] = sum(p.numel() for p in model.parameters() if hasattr(p, 'tp_dim'))
+    group = trainer.optimizer.groups[0]
+    record['share'] = [group.start, group.stop, sum(p.numel() for p in model.parameters()),
+                       trainer.optimizer.adam.state[group.shard]['exp_avg'].numel()]
+    del model, trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def mp_child(rank: str, world: str, port: str, jobs: str, out: str):
+    """One rank of ``model_parallel_phase`` (``chip_smoke.py --mp-child``):
+    on the card, in a gloo group of ``world`` ranks (none at world 1)
+    started without torchrun's environment, the collectives check, then
+    each job of the JSON file ``jobs`` (``_mp_job``) with TF32 off and
+    deterministic algorithms on; writes the records to ``out`` as JSON."""
+    import torch.distributed as dist
+    rank, world = int(rank), int(world)
+    torch.cuda.set_device(0)
+    tf32_off()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if world > 1:
+        dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}', rank=rank,
+                                world_size=world)
+    try:
+        records = {'collectives': _gloo_collectives(world) if world > 1 else {}}
+        for job in json.loads(Path(jobs).read_text()):
+            records[job['name']] = _mp_job(job)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+    Path(out).write_text(json.dumps(records))
+
+
+def _mp_spawn(label: str, world: int, jobs: list, work: Path, procs: list, port: int):
+    """``world`` ``mp_child`` ranks on ``jobs``, started at once and added
+    to ``procs``; returns a function that waits for them (each within
+    ``MP_CHILD_TIMEOUT_S``, killing any left) and returns each rank's
+    records."""
+    path = work / f'jobs_{label}.json'
+    path.write_text(json.dumps(jobs))
+    outs = [work / f'records_{label}.rank{r}.json' for r in range(world)]
+    env = {**os.environ, 'CUBLAS_WORKSPACE_CONFIG': ':4096:8'}
+    ranks = [subprocess.Popen([sys.executable, str(ROOT / 'chip_smoke.py'), '--mp-child',
+                               str(r), str(world), str(port), str(path), str(outs[r])],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    procs += ranks
+
+    def wait() -> list:
+        try:
+            for r, proc in enumerate(ranks):
+                out, err = proc.communicate(timeout=MP_CHILD_TIMEOUT_S)
+                if proc.returncode != 0:
+                    raise AssertionError(f'model-parallel rank {r} of {world} failed '
+                                         f'({proc.returncode}): {out[-1500:]}\n{err[-4000:]}')
+        finally:
+            _stop(ranks)
+        return [json.loads(o.read_text()) for o in outs]
+
+    return wait
+
+
+def _mp_leaf_ratios(mine: dict, names: list, start: Path, want: Path, adam: dict,
+                    spread: Path) -> dict:
+    """A layout's gathered checkpoint leaves ``mine`` after one step against
+    one process's (``want``) after the same step from the same checkpoint
+    (``start``); ``names`` are the parameters' JAX paths in leaf order,
+    ``adam`` the step's lr, betas and eps, ``spread`` the reference's
+    nudged-step spread (``_mp_nudged_spread``). The step and counts must be
+    equal. Bars, each a ratio (≤ 1 passes):
+
+    - ``adam``: every parameter is the Adam step of its start taken with
+      the layout's own gathered moments, to 1e-6·max|leaf| + 1e-3·lr
+      (float32 rounding; a share missed by the all-gather is off by ≈ lr);
+    - ``params``: every parameter within 2.05·lr of one process's. An
+      element whose gradient sits at rounding size takes an Adam step of
+      ≈ lr·sign(noise) (ε is 1e-9), so two summation orders may part by two
+      steps; the first three are at most 1.0023·lr each at β 0.9/0.98;
+    - ``moments``: each first and second moment within 1e-5 +
+      3e-4·max|leaf| + 4·spread of one process's, the spread being how far
+      one process's own moment moved when its parameters were nudged by one
+      float32 unit (at initialization the predictors' LayerNorms over
+      mostly-zero ReLU rows, and the key biases' gradient, which is only
+      rounding noise since a softmax ignores a shift of its keys, amplify
+      last-bit differences far past a fixed bar).
+
+    Also returned: the largest absolute parameter difference and, for each
+    bar, the leaf at its worst ratio."""
+    lr, (beta1, beta2), eps = adam['lr'], adam['betas'], adam['eps']
+    nudge = json.loads(spread.read_text())
+    worst = {'adam': 0.0, 'params': 0.0, 'moments': 0.0, 'max_param_diff': 0.0}
+    where = {}
+
+    def note(key, ratio, leaf):
+        if ratio > worst[key]:
+            worst[key], where[key] = ratio, leaf
+
+    with np.load(start) as first, np.load(want) as ref:
+        n = len(names)
+        if len(ref.files) != 3 * n + 3:
+            raise AssertionError(f'{want.name}: {len(ref.files)} leaves, not {3 * n + 3}')
+        for i in (0, n + 1, 3 * n + 2):
+            if int(mine[f'leaf_{i:05d}']) != int(ref[f'leaf_{i:05d}']):
+                raise AssertionError(f'{want.name}: leaf {i} (step or count) differs')
+        t = int(ref[f'leaf_{n + 1:05d}'])
+        for j, name in enumerate(names):
+            keys = [f'leaf_{1 + j:05d}', f'leaf_{n + 2 + j:05d}', f'leaf_{2 * n + 2 + j:05d}']
+            p, mu, nu = (mine[k].astype(np.float64) for k in keys)
+            if p.shape != ref[keys[0]].shape:
+                raise AssertionError(f'{name}: {p.shape}, not {ref[keys[0]].shape}')
+            p0 = first[keys[0]].astype(np.float64)
+            step = lr * (mu / (1 - beta1 ** t)) / (np.sqrt(nu / (1 - beta2 ** t)) + eps)
+            note('adam', float((np.abs(p - (p0 - step)) / (
+                1e-6 * np.abs(p0).max(initial=0.0) + 1e-3 * lr)).max(initial=0.0)), name)
+            diff = np.abs(p - ref[keys[0]].astype(np.float64))
+            note('params', float(diff.max(initial=0.0) / (2.05 * lr)), name)
+            worst['max_param_diff'] = max(worst['max_param_diff'], float(diff.max(initial=0.0)))
+            for k, label in zip(keys[1:], ('mu', 'nu')):
+                b = ref[k].astype(np.float64)
+                bar = 1e-5 + 3e-4 * np.abs(b).max(initial=0.0) + 4 * nudge[k]
+                note('moments', float((np.abs(mine[k].astype(np.float64) - b) / bar).max(
+                    initial=0.0)), f'{name} {label} (nudge spread {nudge[k]:.3g})')
+    worst['where'] = where
+    return worst
+
+
+def _mp_profiles(work: Path) -> dict:
+    """``profile_train`` on the published TTS step (bf16, B32 x 128 x 512)
+    under ``torch.distributed.run --nproc_per_node 1``: an NCCL group of
+    one, the flat buffer's all-reduce. Its readings."""
+    readings = {}
+    for label in ('grouped',):
+        out = work / f'profile_{label}.json'
+        argv = ['-m', 'transformertts_torch.profile_train', '--json', str(out)]
+        cmd = _torchrun(*argv) if label == 'grouped' else [sys.executable, *argv]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=MP_PROFILE_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f'profile_train {label} failed ({proc.returncode}): '
+                                 f'{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}')
+        readings[label] = json.loads(out.read_text())
+        if readings[label]['grouped'] != (label == 'grouped'):
+            raise AssertionError(f'profile_train {label}: grouped is '
+                                 f'{readings[label]["grouped"]}')
+    return readings
+
+
+def _mp_refusal(session: Path) -> str:
+    """``mesh: {data: 1, model: 2}`` under torchrun with one process: train_tts
+    must exit non-zero with the tiling message. Returns the message's line."""
+    refused = _session_variant(session, 'refused_model', 'tts_settings',
+                               {'mesh': {'data': 1, 'model': 2}})
+    proc = subprocess.run(_torchrun('-m', 'transformertts_torch.train_tts', '--config',
+                                    str(refused), '--yes', '--device', DEVICE),
+                          cwd=ROOT, capture_output=True, text=True, timeout=DP_CHILD_TIMEOUT_S)
+    said = [l for l in (proc.stdout + proc.stderr).splitlines() if 'does not tile' in l]
+    if proc.returncode == 0 or not said:
+        raise AssertionError(f'mesh 1x2 on one process: exit {proc.returncode}, no tiling '
+                             f'message: {proc.stderr[-3000:]}')
+    return said[-1].strip()
+
+
+def model_parallel_phase(card: str) -> dict:
+    """Tensor parallelism (the mesh's ``model`` axis) and ZeRO-1 on the one
+    card: 1, 2 and 4 ranks (``mp_child``), the 2 and 4 in gloo groups with
+    every rank on the card, started together. The collectives on CUDA
+    tensors first; then the TTS at the published width (f32, dropout 0, TF32
+    off, ``MP_GATE_BATCH``) and the Aligner at ``DP_ALIGNER``'s depth
+    (``MP_ALIGNER_BATCH``, r 1), ``MP_STEPS`` steps each at {1, 2}, {2, 1}
+    and {2, 2}, each step from one process's checkpoint of that step (at
+    the published learning rate Adam's sign-like first steps move the TTS's
+    loss from ~10 to ~23, so a free run would carry rounding differences
+    forward and grow them), whose losses and gathered parameters and
+    moments must be one process's within the bars of ``_mp_leaf_ratios``;
+    bf16 TTS steps
+    at the published settings (dropout 0.1) on ``MP_MEMORY_BATCH`` at {1,
+    1}, {1, 2}, {2, 1} and {2, 2}, whose losses must be finite, with the
+    peak memory of a rank's step; on every run K2/K3/K4 launched per rank as
+    often as alone, the model ranks of a data row holding the same
+    replicated parameters bit for bit, each data rank ⌈n/D⌉ of the Adam
+    state. Then ``mesh: {data: 1, model: 2}`` refused under torchrun, and
+    ``profile_train`` with an NCCL group of one."""
+    work = WORK / 'model_parallel'
+    if work.exists():
+        shutil.rmtree(work)
+    gates = write_session(work / 'gates', dict(compute_dtype='float32', dropout_rate=0.0,
+                                               predictors_dropout=0.0),
+                          aligner_overrides=dict(DP_ALIGNER, dropout_rate=0.0,
+                                                 decoder_prenet_dropout=0.0))
+    published = write_session(work / 'published')
+
+    def job(name, kind, model, mode, session=gates):
+        batch = (MP_MEMORY_BATCH if session == published
+                 else MP_ALIGNER_BATCH if kind == 'aligner' else MP_GATE_BATCH)
+        return dict(name=name, kind=kind, model=model, session=str(session), batch=batch,
+                    mode=mode, states=str(work / kind))
+
+    layouts = {f'{d}x{m}': (d, m) for d, m in MP_LAYOUTS}
+    t0 = time.perf_counter()
+    # the references and the bf16 step alone, then every layout at once,
+    # each in its own group
+    procs, ports = [], _free_ports(2 + len(layouts))
+    try:
+        firsts = [_mp_spawn('references', 1, [job('tts', 'tts', 1, 'reference'),
+                                              job('aligner', 'aligner', 1, 'reference')],
+                            work, procs, ports[0]),
+                  _mp_spawn('bf16', 1, [job('bf16', 'tts', 1, None, published)], work, procs,
+                            ports[1])]
+        alone = {k: v for wait in firsts for k, v in wait()[0].items()}
+        waits = {layout: _mp_spawn(layout, d * m, [
+            job(f'tts-{layout}', 'tts', m, 'follow'),
+            job(f'aligner-{layout}', 'aligner', m, 'follow'),
+            job(f'bf16-{layout}', 'tts', m, None, published)], work, procs, port)
+            for (layout, (d, m)), port in zip(layouts.items(), ports[2:])}
+        records = {layout: wait() for layout, wait in waits.items()}
+    finally:
+        _stop(procs)
+    seconds = time.perf_counter() - t0
+    for layout, ranks in records.items():
+        for rank, rec in enumerate(ranks):
+            bad = [k for k, ok in rec['collectives'].items() if not ok]
+            if bad or len(rec['collectives']) != 2 * (len(GLOO_COLLECTIVES) + 2):
+                raise AssertionError(f'gloo on CUDA tensors, rank {rank} at {layout}: '
+                                     f'wrong {bad} of {sorted(rec["collectives"])}')
+    log(f'model parallelism ({card}): gloo (torch {torch.__version__}) takes '
+        f'{", ".join(GLOO_COLLECTIVES)} on CUDA tensors in float32 and bfloat16, and the '
+        f'in-place reduce-scatter and all-gather, right on every rank of 2 and 4')
+    result = {'seconds': seconds, 'layouts': {}, 'memory_gib': {'1x1': alone['bf16']['peak_gib']}}
+    for layout, (data, model) in layouts.items():
+        ranks = records[layout]
+        for kind in ('tts', 'aligner', 'bf16'):
+            name = f'{kind}-{layout}'
+            ref = alone[kind]
+            for rank, rec in enumerate(ranks):
+                mine = rec[name]
+                if mine['mesh'] != [rank // model, data, rank % model, model]:
+                    raise AssertionError(f'{name} rank {rank}: mesh {mine["mesh"]}')
+                if mine['launches'] != ref['launches']:
+                    raise AssertionError(f'{name} rank {rank}: K2/K3/K4 launched '
+                                         f'{mine["launches"]}, alone {ref["launches"]}')
+                partner = ranks[rank - rank % model][name]
+                if mine['replicated'] != partner['replicated']:
+                    raise AssertionError(f'{name}: model rank {rank % model} of data row '
+                                         f'{rank // model} holds other replicated '
+                                         f'parameters than model rank 0')
+                start, stop, n, held = mine['share']
+                if held != stop - start or held != -(-n // data) or (data > 1 and held >= n):
+                    raise AssertionError(f'{name} rank {rank}: ZeRO-1 share {mine["share"]}')
+                if not np.isfinite(mine['losses']).all():
+                    raise AssertionError(f'{name} rank {rank}: losses {mine["losses"]}')
+                if kind != 'bf16' and not np.allclose(mine['losses'], ref['losses'],
+                                                      rtol=MP_LOSS_RTOL, atol=0):
+                    raise AssertionError(f'{name} rank {rank}: losses {mine["losses"]}, '
+                                         f'alone {ref["losses"]}')
+            entry = dict(losses=ranks[0][name]['losses'], launches=ranks[0][name]['launches'],
+                         peak_gib=[r[name]['peak_gib'] for r in ranks],
+                         sharded=ranks[0][name]['sharded'], share=ranks[0][name]['share'])
+            if kind == 'bf16':
+                result['memory_gib'][layout] = max(entry['peak_gib'])
+            else:
+                steps = ranks[0][name]['ratios']
+                entry.update({key: max(r[key] for r in steps)
+                              for key in ('adam', 'params', 'moments', 'max_param_diff')})
+                entry['by_step'] = steps
+                if len(steps) != MP_STEPS or max(entry['adam'], entry['params'],
+                                                 entry['moments']) > 1:
+                    raise AssertionError(f'{name}: the gathered state is off its bars: by step '
+                                         f'{steps}')
+                entry['alone_losses'] = ref['losses']
+            result['layouts'][name] = entry
+            log(f'model parallelism {name} ({card}), {MP_STEPS} steps, {data * model} gloo '
+                f'ranks on the card: losses {entry["losses"]}'
+                + ('' if kind == 'bf16' else
+                   f' (alone {ref["losses"]}); each step from one process\'s state: '
+                   f'parameters at {entry["adam"]:.3g} of the Adam-step bar and '
+                   f'{entry["params"]:.3g} of the 2.05 lr bar, moments at '
+                   f'{entry["moments"]:.3g} of theirs (largest parameter difference '
+                   f'{entry["max_param_diff"]:.3g}; worst leaves '
+                   f'{[r["where"] for r in entry["by_step"]]})')
+                + f'; K2/K3/K4 {entry["launches"]} a rank (alone {ref["launches"]}); '
+                f'{entry["sharded"]} parameters sharded a rank; ZeRO-1 share '
+                f'{entry["share"]}; peak memory a rank {entry["peak_gib"]} GiB')
+    for path in work.glob('*.npz'):
+        path.unlink()
+    log(f'model parallelism peak memory of a bf16 TTS step at B{MP_MEMORY_BATCH[0]} x '
+        f'{MP_MEMORY_BATCH[1]} x {MP_MEMORY_BATCH[2]}, largest rank ({card}): '
+        + ', '.join(f'{k} {v:.3f} GiB' for k, v in result['memory_gib'].items())
+        + f'; the runs took {seconds:.1f} s')
+    result['refusal'] = _mp_refusal(gates)
+    log(f'mesh data 1 x model 2 on one process under torchrun: refused '
+        f'("{result["refusal"]}")')
+    result['profiles'] = _mp_profiles(work)
+    for label, r in result['profiles'].items():
+        log(f'profile_train {label} ({card}, {r["device"]}): {r["launches"]:.0f} launches a '
+            f'step, kernels {r["kernel_ms"]:.3f} ms (casts and copies '
+            f'{r["kinds"].get("casts and copies", 0.0):.3f}, Adam '
+            f'{r["kinds"].get("Adam (foreach)", 0.0):.3f}, elementwise '
+            f'{r["kinds"].get("elementwise and other", 0.0):.3f}), '
+            f'{r["step_ms"]:.2f} ms a step unprofiled, peak {r["peak_gib"]:.3f} GiB')
+    return result
+
+
+def _timed(phase, *args):
+    """``phase(*args)``, with its wall seconds logged."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f'{phase.__name__}: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def main():
     card = device_phase()
-    build_phase()
-    serving = kernel_phase()
-    trainable = trainable_kernel_phase()
-    result = slice_phase()
-    vocoders = vocoder_phase(result['model_dir'])
+    _timed(build_phase)
+    serving = _timed(kernel_phase)
+    trainable = _timed(trainable_kernel_phase)
+    result = _timed(slice_phase)
+    vocoders = _timed(vocoder_phase, result['model_dir'])
     gl = vocoders.pop('Griffin-Lim')
-    warm_start = warm_start_phase(result['model_dir'], vocoders['HiFi-GAN']['checkpoint'], card)
-    train = training_phase()
-    log_mel = log_mel_kernel_phase()
-    featurize = featurization_phase(card)
-    aligner_kernels = aligner_kernel_phase()
+    warm_start = _timed(warm_start_phase, result['model_dir'],
+                        vocoders['HiFi-GAN']['checkpoint'], card)
+    train = _timed(training_phase)
+    log_mel = _timed(log_mel_kernel_phase)
+    featurize = _timed(featurization_phase, card)
+    aligner_kernels = _timed(aligner_kernel_phase)
     k2_f32 = aligner_kernels.pop('k2')
     f32_resources = aligner_kernels.pop('f32_resources')
-    aligner_bwd = aligner_backward_phase()
-    aligner = aligner_phase(featurize['config'])
-    aligner_train = aligner_training_phase(featurize['config'])
-    data_parallel = data_parallel_phase(result['model_dir'], card)
+    aligner_bwd = _timed(aligner_backward_phase)
+    aligner = _timed(aligner_phase, featurize['config'])
+    aligner_train = _timed(aligner_training_phase, featurize['config'])
+    data_parallel = _timed(data_parallel_phase, result['model_dir'], card)
+    model_parallel = _timed(model_parallel_phase, card)
     times = serving['times']
     dec = times['decoder']
     kernels = [{
@@ -2460,6 +2985,9 @@ def main():
                         f'0.1, {"forward" if label == "K2" else "backward (dQ, dK, dV)"}'),
             'shape': t_dec['shape'],
             'encoder_ms': t_enc[label], 'encoder_plain_ms': t_enc[plain],
+            'encoder_bound_ms': t_enc['bounds'][label]['bound_ms'],
+            'encoder_bound_by': t_enc['bounds'][label]['bound_by'],
+            'encoder_library_ms': t_enc[library],
         })
     rel_l2 = trainable['rel_l2']
     kernels[1].update(trainable['resources']['K2'], **k2_f32,
@@ -2473,7 +3001,9 @@ def main():
             aligner_training_launches=aligner_train['launches'][i],
             data_parallel_training_launches=data_parallel['tts']['launches'][i],
             data_parallel_aligner_launches=data_parallel['aligner']['launches'][i],
-            d100_max_abs_err=data_parallel['padded'][label])
+            d100_max_abs_err=data_parallel['padded'][label],
+            model_parallel_launches={
+                name: run['launches'][i] for name, run in model_parallel['layouts'].items()})
     for entry, label in ((kernels[-2], 'K3'), (kernels[-1], 'K4')):
         limit = aligner_bwd['bounds'][label]
         entry.update(
@@ -2542,6 +3072,14 @@ def main():
         f'{dp_aligner["ms_per_step"]:.3f} and {dp_aligner["single_ms_per_step"]:.3f}; '
         f'serving over a one-card mesh {data_parallel["serving"]["sentences_per_s"]:.3f} '
         f'sentences/s, {data_parallel["serving"]["one_device_sentences_per_s"]:.3f} without')
+    mp = model_parallel
+    log(f'model parallelism on one card ({card}), gloo ranks: TTS (f32, published width) and '
+        f'Aligner (2 + 2 blocks) at ' + ', '.join(f'{d}x{m}' for d, m in MP_LAYOUTS)
+        + f' match one process; bf16 TTS peak memory a rank '
+        + ', '.join(f'{k} {v:.3f} GiB' for k, v in mp['memory_gib'].items())
+        + '; profile_train ' + ', '.join(
+            f'{k} {v["launches"]:.0f} launches, {v["kernel_ms"]:.3f} kernel ms'
+            for k, v in mp['profiles'].items()))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
@@ -2554,4 +3092,6 @@ if __name__ == '__main__':
         sys.exit(train_child(*sys.argv[2:]))
     if sys.argv[1:2] == ['--time-child']:
         sys.exit(time_child(*sys.argv[2:]))
+    if sys.argv[1:2] == ['--mp-child']:
+        sys.exit(mp_child(*sys.argv[2:]))
     sys.exit(main())

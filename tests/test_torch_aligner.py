@@ -325,8 +325,8 @@ def test_jax_checkpoint_restores_into_port_and_back(aligners, tmp_path):
     flat = flatten_params(jax.device_get(jm.params))
     for key, value in params_to_jax(tm.state_dict()).items():
         np.testing.assert_array_equal(value, np.asarray(flat[key]))
-    opt = torch.optim.Adam(tm.parameters())
-    back = t_ckpt.save_checkpoint(tmp_path / 'port', tm, opt, 130000)
+    from transformertts_torch.training.state import make_optimizer as t_make_optimizer
+    back = t_ckpt.save_checkpoint(tmp_path / 'port', tm, t_make_optimizer(tm), 130000)
     restored = j_ckpt.restore_checkpoint(back, init_state(jm.params, tx))
     assert int(restored.step) == 130000
     for a, b in zip(jax.tree_util.tree_leaves(restored.params),

@@ -144,7 +144,7 @@ def _one_step(r, forcing):
     set_learning_rate(adam, SCHEDULE, 0)
     j_grad_state = params_from_jax(flatten_params(j_grads))
     for name, param in tm.named_parameters():
-        param.grad = j_grad_state[name].clone()
+        param.grad.copy_(j_grad_state[name])   # .grad is a view into the flat buffer
     adam.step()
     return dict(j_loss=float(j_loss), j_parts=j_parts, j_grads=flatten_params(j_grads),
                 j_params=flatten_params(jax.device_get(j_params)),

@@ -29,6 +29,7 @@ from transformertts_torch.models.vocoder import load_vocoder
 from transformertts_torch.parallel import maybe_initialize_distributed
 from transformertts_torch.parallel.mesh import destroy_distributed
 from transformertts_torch.training import checkpointing
+from transformertts_torch.training.state import make_optimizer
 from transformertts_torch.utils.config import TrainingConfigManager
 
 torch.set_num_threads(1)
@@ -98,8 +99,7 @@ def model_dir(tmp_path, monkeypatch):
     cm = TrainingConfigManager(write_featurized(tmp_path / 'stage3', n_clips=2), aligner=True)
     aligner = cm.get_model('cpu').init_params(torch.Generator().manual_seed(0))
     # step 7: the session's reduction schedule is at r = 1 there
-    checkpointing.save_checkpoint(cm.weights_dir, aligner,
-                                  torch.optim.Adam(aligner.parameters()), 7)
+    checkpointing.save_checkpoint(cm.weights_dir, aligner, make_optimizer(aligner), 7)
     return tmp_path
 
 

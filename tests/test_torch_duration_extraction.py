@@ -219,7 +219,8 @@ def test_cli_refuses_an_aligner_at_r_above_1(tmp_path):
     cfg = write_featurized(tmp_path, n_clips=2)
     cm = TrainingConfigManager(cfg, aligner=True)
     model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(0))
-    t_ckpt.save_checkpoint(cm.weights_dir, model, torch.optim.Adam(model.parameters()), 2)
+    from transformertts_torch.training.state import make_optimizer
+    t_ckpt.save_checkpoint(cm.weights_dir, model, make_optimizer(model), 2)
     assert cm.load_model(device='cpu').r == 10
     with pytest.raises(ValueError, match='reduction factor must be 1'):
         t_cli.main(['--config', str(cfg), '--device', 'cpu', '--skip_char_pitch'])

@@ -38,6 +38,7 @@ PORT_MODULES = [
     'transformertts_torch.ops.fused_log_mel',
     'transformertts_torch.parallel',
     'transformertts_torch.parallel.mesh',
+    'transformertts_torch.parallel.tensor_parallel',
     'transformertts_torch.audio',
     'transformertts_torch.audio.griffinlim',
     'transformertts_torch.audio.pitch',
@@ -98,6 +99,7 @@ def test_port_imports_no_jax():
     assert 'transformertts_torch.models.vocoder' in loaded
     assert 'transformertts_torch.training.aligner_trainer' in loaded
     assert 'transformertts_torch.parallel.mesh' in loaded
+    assert 'transformertts_torch.parallel.tensor_parallel' in loaded
     # h5py is imported only when hdf5 weights are read or written, matplotlib
     # only when a plot is drawn: the card's machine has neither
     assert 'transformertts_torch.models.convert' in loaded and 'h5py' not in loaded

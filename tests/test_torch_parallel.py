@@ -95,6 +95,11 @@ def _train_step(job: dict, mesh: ProcessMesh) -> dict:
     trainer = Trainer(model, SCHEDULE, grad_accumulation=job['n'], mesh=mesh)
     seed = trainer.step_generator(0).initial_seed()
     aux = trainer.train_step(job['batch'], **job['options'])
+    if mesh.grouped and mesh.data_size > 1:
+        # ZeRO-1 reduce-scattered the sums into each rank's share of the
+        # flat gradient buffer: gather the shares to read the whole sum
+        for g in trainer.optimizer.groups:
+            dist.all_gather_into_tensor(g.grad, g.shard.grad.clone(), group=mesh.data_group)
     grads = {name: p.grad.clone() for name, p in model.named_parameters()}
     val = trainer.val_step(job['batch'], **job['val_options'])
     return dict(aux={k: v.clone() for k, v in aux.items() if not isinstance(v, dict)},
@@ -275,8 +280,14 @@ def test_make_mesh_tiles_the_devices_or_raises():
     if torch.cuda.device_count() < 2:
         with pytest.raises(ValueError, match='does not tile'):
             make_mesh(MeshConfig(data=2))
-    with pytest.raises(NotImplementedError, match='tensor parallelism'):
-        MeshConfig(data=2, model=2)
+    # the model axis: rows spread over data only, each data row's first device
+    grid = ['cpu:0', 'cpu:1', 'cpu:2', 'cpu:3']
+    assert MeshConfig(data=2, model=2) == MeshConfig(2, 2)
+    assert make_mesh(MeshConfig(data=2, model=2), devices=grid) == \
+        [torch.device('cpu:0'), torch.device('cpu:2')]
+    assert make_mesh(MeshConfig(model=2), devices=grid) == make_mesh(MeshConfig(2, 2), grid)
+    with pytest.raises(ValueError, match='mesh 3x2 does not tile 4 devices'):
+        make_mesh(MeshConfig(data=3, model=2), devices=grid)
 
 
 def _session(tmp_path, mesh: dict, max_steps=2, **schedule):
@@ -316,12 +327,20 @@ def test_config_mesh_larger_than_the_world_raises(tmp_path):
     assert not dist.is_initialized()
 
 
-def test_config_model_axis_raises(tmp_path):
+def test_config_model_axis_raises(tmp_path, monkeypatch):
+    """A mesh whose data × model is not the world size raises before any
+    process group comes up: {data: 3, model: 2} over 4 ranks, and
+    {data: -1, model: 2} in one process."""
     from transformertts_torch.utils.config import TrainingConfigManager
     cfg, _ = _session(tmp_path, {'data': -1, 'model': 2})
-    cm = TrainingConfigManager(cfg)
-    with pytest.raises(NotImplementedError, match='tensor parallelism'):
-        cm.get_mesh('cpu')
+    with pytest.raises(ValueError, match='mesh 0x2 does not tile 1 devices'):
+        TrainingConfigManager(cfg).get_mesh('cpu')
+    cfg, _ = _session(tmp_path, {'data': 3, 'model': 2})
+    monkeypatch.setenv('RANK', '0')
+    monkeypatch.setenv('WORLD_SIZE', '4')
+    with pytest.raises(ValueError, match=r'mesh 3x2 does not tile 4 devices \(world size 4\)'):
+        TrainingConfigManager(cfg).get_mesh('cpu')
+    assert not dist.is_initialized()
 
 
 def test_config_without_a_launch_is_one_ungrouped_process(tmp_path):
@@ -379,7 +398,7 @@ def test_train_tts_cli_over_two_ranks_and_resume(tmp_path):
     results = _run_ranks(lambda r: argv, env_of=lambda r: _rank_env(r, WORLD, port))
     for rank, (rc, out, err) in enumerate(results):
         assert rc == 0, f'rank {rank}: {err[-3000:]}'
-        assert f'rank {rank} of 2, data-parallel' in out and 'done' in out
+        assert f'rank {rank} of 2 (data {rank} of 2, model 0 of 1)' in out and 'done' in out
     assert [s for s, _ in checkpointing.list_checkpoints(cm.weights_dir)] == [1, 2]
     # rank 0 alone logs: one event file a writer
     events = sorted(p.relative_to(cm.log_dir).parent for p in cm.log_dir.rglob('events.*'))

@@ -157,7 +157,7 @@ def one_step():
     set_learning_rate(adam_trainer.optimizer, SCHEDULE, 0)
     j_grad_state = params_from_jax(flatten_params(j_grads))
     for name, param in tm.named_parameters():
-        param.grad = j_grad_state[name].clone()
+        param.grad.copy_(j_grad_state[name])   # .grad is a view into the flat buffer
     adam_trainer.optimizer.step()
     return dict(j_loss=float(j_loss), j_parts=j_losses, j_grads=flatten_params(j_grads),
                 j_params=flatten_params(jax.device_get(j_params)),

@@ -22,7 +22,10 @@ of the model (and vocoder) on each device, as the JAX package shards a
 chunk's batch over its mesh's ``data`` axis: batch buckets start at the
 number of devices, each device takes a contiguous share of the chunk's
 rows, and every share decodes at the chunk's one frame bucket, so the wavs
-are those of one device. The caller's model is not moved.
+are those of one device. The caller's model is not moved. A mesh with a
+``model`` axis spreads rows over its ``data`` axis only, with the
+parameters replicated, as the JAX package's ``_prepare_mesh`` does
+(``make_mesh`` returns each data row's first device).
 """
 from typing import List, Sequence
 

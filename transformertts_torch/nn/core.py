@@ -9,6 +9,11 @@ layouts. Initializers match the JAX package's Keras defaults (glorot-uniform
 kernels, zero biases, uniform(-0.05, 0.05) embeddings), drawn from an
 explicit ``torch.Generator``.
 
+Under tensor parallelism (``parallel/tensor_parallel.py``) a Dense or a
+Conv1D may hold only this model rank's part of its weight: a column
+module's input then passes through ``tp_input``, and a row module sums its
+partial products with ``tp_partial_sum`` before adding its bias.
+
 Dropout takes an explicit ``torch.Generator`` on the tensor's device and a
 ``training`` flag, in place of the JAX package's rng keys and
 ``deterministic``.
@@ -51,6 +56,9 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
 class Dense(nn.Module):
     """y = act(x @ weightᵀ + bias) in x's dtype."""
 
+    tp_input = None          # set on a column-parallel module
+    tp_partial_sum = None    # set on a row-parallel module
+
     def __init__(self, in_dim: int, out_dim: int, activation: Optional[str] = None):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
@@ -63,7 +71,13 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        if self.tp_input is not None:
+            x = self.tp_input(x)
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if self.tp_partial_sum is None:
+            y = F.linear(x, w, b)
+        else:
+            y = self.tp_partial_sum(F.linear(x, w)) + b
         return self.act(y)
 
 
@@ -73,6 +87,9 @@ class Conv1D(nn.Module):
     SAME pads ``((k-1)//2, k//2)`` as ``lax`` does; both frameworks
     cross-correlate, so the weights carry over without flipping.
     """
+
+    tp_input = None          # set on a column-parallel module
+    tp_partial_sum = None    # set on a row-parallel module
 
     def __init__(self, in_dim: int, filters: int, kernel_size: int,
                  activation: Optional[str] = None):
@@ -88,9 +105,15 @@ class Conv1D(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_input is not None:
+            x = self.tp_input(x)
         k = self.kernel_size
         xt = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
-        y = F.conv1d(xt, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if self.tp_partial_sum is None:
+            y = F.conv1d(xt, w, b)
+        else:
+            y = self.tp_partial_sum(F.conv1d(xt, w)) + b[:, None]
         return self.act(y.transpose(1, 2))
 
 

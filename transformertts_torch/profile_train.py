@@ -1,7 +1,8 @@
 """Where a training step's time goes on the card.
 
     python -m transformertts_torch.profile_train [--config config/training_config.yaml]
-        [--aligner]
+        [--aligner] [--json out.json]
+    torchrun --nproc_per_node N -m transformertts_torch.profile_train --config <yaml>
 
 Builds the config's ForwardTransformer (the published TTS settings: bf16,
 dropout 0.1, Adam) with weights drawn from a seed, times 15 synchronized
@@ -9,13 +10,20 @@ dropout 0.1, Adam) with weights drawn from a seed, times 15 synchronized
 frames (the step chip_smoke.py times); with ``--aligner`` the config's
 Aligner (f32, dropout 0.1) at r = 1 on B16 x 896 frames x 160 tokens, the
 published buckets' largest, with no diagonal forced. Then it records 5
-more under ``torch.profiler`` and prints, per step: the unprofiled ms (median of the warm steps after the third), the kernel time by
-kind and the busiest kernels, the kernel launches, the device time covered
+more under ``torch.profiler`` and prints, per step: the unprofiled ms
+(median of the warm steps after the third), the kernel time by kind and
+the busiest kernels, the kernel launches, the device time covered
 by at least one kernel (a check on the sum: one stream runs one kernel at a
 time), the device's idle share of an unprofiled step (1 - kernel ms / step
-ms) and of a profiled one, and the peak device memory.
+ms) and of a profiled one, and the peak device memory of this process.
+
+Under torchrun the trainer runs on the config's ``mesh: {data, model}``,
+one card a rank; every rank profiles its own step and prints its lines
+after ``rank r:``, so the peak memory is a rank's. ``--json`` also writes
+the readings (rank r > 0: to ``<path>.rank<r>``).
 """
 import argparse
+import json
 import statistics
 import time
 from collections import defaultdict
@@ -114,13 +122,26 @@ def main(argv=None):
     parser.add_argument('--config', default='config/training_config.yaml')
     parser.add_argument('--aligner', action='store_true',
                         help="profile the config's Aligner at r = 1 instead")
+    parser.add_argument('--json', help='also write the readings to this file')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: no CUDA device')
+    from transformertts_torch.parallel.mesh import destroy_distributed, local_device
     from transformertts_torch.utils.config import TrainingConfigManager
     cm = TrainingConfigManager(args.config, aligner=args.aligner)
-    model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(0)).to('cuda')
-    trainer = cm.get_trainer(model)
+    device = local_device('cuda')
+    mesh = cm.get_mesh(device)
+    try:
+        profile(cm, args, mesh, device)
+    finally:
+        destroy_distributed()
+
+
+def profile(cm, args, mesh, device):
+    """Time, then profile, ``STEPS`` steps on this rank, and print (and
+    with ``--json`` write) the readings."""
+    model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(0)).to(device)
+    trainer = cm.get_trainer(model, mesh)
     shape = ALIGNER_SHAPE if args.aligner else SHAPE
     batch = (aligner_batch if args.aligner else synthetic_batch)(model, *shape)
     options = {'r': 1} if args.aligner else {}
@@ -154,20 +175,32 @@ def main(argv=None):
     launches = sum(c for _, c in table.values()) / n
     busy = busy_ms(prof) / n
 
-    print(f'{cm.model_kind} train step B{shape[0]} x {shape[1]} tokens x {shape[2]} frames'
-          f'{", r 1" if args.aligner else ""}, {cm.config.get("compute_dtype")}, dropout '
-          f'{cm.config["dropout_rate"]}')
-    print(f'unprofiled: {step_ms:.2f} ms a step (median of warm steps 4-{WARM})')
-    print(f'kernels: {kernel_ms:.2f} ms a step summed, {busy:.2f} ms covered, '
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    tag = f'rank {mesh.rank}: ' if mesh.grouped else ''
+    print(f'{tag}{cm.model_kind} train step B{shape[0]} x {shape[1]} tokens x {shape[2]} '
+          f'frames{", r 1" if args.aligner else ""}, {cm.config.get("compute_dtype")}, '
+          f'dropout {cm.config["dropout_rate"]}, mesh data {mesh.data_size} x model '
+          f'{mesh.model_size}')
+    print(f'{tag}unprofiled: {step_ms:.2f} ms a step (median of warm steps 4-{WARM})')
+    print(f'{tag}kernels: {kernel_ms:.2f} ms a step summed, {busy:.2f} ms covered, '
           f'{launches:.0f} launches a step; idle share of an unprofiled step '
           f'{1 - kernel_ms / step_ms:.3f}, of a profiled one ({profiled_ms:.2f} ms) '
           f'{1 - busy / profiled_ms:.3f}')
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        print(f'  {kind:<24} {ms:8.3f} ms')
-    print(f'busiest {TOP} kernels (ms a step, launches a step):')
+        print(f'{tag}  {kind:<24} {ms:8.3f} ms')
+    print(f'{tag}busiest {TOP} kernels (ms a step, launches a step):')
     for name, (us, count) in sorted(table.items(), key=lambda kv: -kv[1][0])[:TOP]:
-        print(f'  {us / 1e3 / n:8.3f} {count / n:6.0f}  {name[:110]}')
-    print(f'peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+        print(f'{tag}  {us / 1e3 / n:8.3f} {count / n:6.0f}  {name[:110]}')
+    print(f'{tag}peak device memory {peak_gib:.2f} GiB')
+    if args.json:
+        path = args.json if mesh.rank == 0 else f'{args.json}.rank{mesh.rank}'
+        with open(path, 'w') as f:
+            json.dump(dict(step_ms=step_ms, profiled_ms=profiled_ms, kernel_ms=kernel_ms,
+                           busy_ms=busy, launches=launches, kinds=dict(kinds),
+                           peak_gib=peak_gib, rank=mesh.rank, size=mesh.size,
+                           data=mesh.data_size, model=mesh.model_size,
+                           grouped=mesh.grouped, device=torch.cuda.get_device_name(device)),
+                      f)
 
 
 if __name__ == '__main__':

@@ -24,9 +24,11 @@ the validation losses by step, so a caller can tell. Images need
 matplotlib and are left out where it is not installed; the profiler window
 of the JAX CLI is not ported.
 
-Under torchrun the config's ``mesh`` trains data-parallel as
-``train_tts`` does: the same seeded loader on every rank, rank 0 alone
-writing, every rank resuming from the same checkpoint. The trainer returns
+Under torchrun the config's ``mesh: {data, model}`` trains over the mesh
+as ``train_tts`` does (its ``ffn.d1``/``ffn.d2`` pairs sharded over
+``model``, ZeRO-1 over ``data``): the same seeded loader on every rank,
+rank 0 alone writing full-width checkpoints, every rank resuming from the
+same checkpoint. The trainer returns
 the whole batch's maps, so the attention scores and the extraction in
 validation drop the rows that pad a bucket or the mesh, as the JAX CLI
 does.
@@ -121,6 +123,8 @@ def validate(trainer, val_dataset, summary_manager, step, audio: Audio, model,
 
 @ignore_exception
 def predict_test_sentences(model, summary_manager, config, step, plots: bool):
+    """The test sentences' predicted mels and wavs, logged unless
+    ``summary_manager`` is None (a model rank other than 0)."""
     path = Path(config.get('test_sentences_file', 'config/aligner_test_sentences.txt'))
     if not path.exists():
         path = Path('config/aligner_test_sentences.txt')
@@ -130,7 +134,7 @@ def predict_test_sentences(model, summary_manager, config, step, plots: bool):
         if not text.strip():
             continue
         out = model.predict(text, max_length=int(config.get('prediction_max_length', 1000)))
-        if out['mel'].shape[0] < 2:
+        if out['mel'].shape[0] < 2 or summary_manager is None:
             continue
         if plots:
             summary_manager.add_image(f'TestSentences/{i}_mel', mel_png(out['mel']), step)
@@ -189,7 +193,8 @@ def train(cm, args, device) -> dict:
         cm.print_config()
     mesh.barrier()
     if mesh.grouped:
-        print(f'rank {mesh.rank} of {mesh.size}, data-parallel')
+        print(f'rank {mesh.rank} of {mesh.size} (data {mesh.data_rank} of {mesh.data_size}, '
+              f'model {mesh.model_rank} of {mesh.model_size})')
     config = cm.config
 
     model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(INIT_SEED))
@@ -271,7 +276,9 @@ def train(cm, args, device) -> dict:
                     summary_manager.add_scalar('Meta/validation_time', result[1], step)
                 if result[0] is not None:
                     validation[step] = result[0]
-        if step % pred_freq == 0 and step >= pred_start and mesh.is_main:
+        if step % pred_freq == 0 and step >= pred_start and mesh.data_rank == 0:
+            # the model ranks of data row 0 together: a sharded model's
+            # collectives span the row; rank 0 alone logs
             predict_test_sentences(model, summary_manager, config, step, plots)
     if pending is not None and mesh.is_main:
         log_step(*pending)

@@ -19,12 +19,16 @@ losses by step, so a caller can tell. Mel images need matplotlib and are
 left out where it is not installed; the profiler window of the JAX CLI is
 not ported.
 
-Under torchrun the config's ``mesh: {data: -1 or N}`` trains data-parallel
-over the N processes (``parallel/mesh.py``; ``--device cuda`` is then
-``cuda:LOCAL_RANK``): every rank runs the same seeded loader and the trainer
-takes its slice of each batch; rank 0 alone writes the logs, audio, model
-dirs and checkpoints, and every rank resumes from the same checkpoint. A
-``mesh.data`` that is not the world size, or ``model`` > 1, raises.
+Under torchrun the config's ``mesh: {data: D, model: M}`` trains over the
+D × M processes (``parallel/mesh.py``; ``--device cuda`` is then
+``cuda:LOCAL_RANK``; ``data: -1`` takes world // M): rank r is data index
+r // M and model index r % M. Every rank runs the same seeded loader and
+the trainer takes its data index's slice of each batch; the conv pairs are
+sharded over the M model ranks (tensor parallelism) and the Adam moments
+over the D data ranks (ZeRO-1, at D > 1). Rank 0 alone writes the logs,
+audio, model dirs and checkpoints, each at full width after every rank
+gathers, and every rank resumes from the same checkpoint. A mesh that does
+not tile the world raises.
 """
 import importlib.util
 import sys
@@ -38,6 +42,7 @@ import tqdm
 from transformertts_torch.audio import Audio
 from transformertts_torch.data.datasets import TTSDataset, TTSPreprocessor
 from transformertts_torch.parallel.mesh import destroy_distributed, local_device
+from transformertts_torch.parallel.tensor_parallel import unsharded
 from transformertts_torch.training import checkpointing
 from transformertts_torch.utils.config import TrainingConfigManager
 from transformertts_torch.utils.decorators import ignore_exception, time_it
@@ -96,6 +101,8 @@ def log_duration_histograms(model, fname_durs, summary_manager, step):
 
 @ignore_exception
 def predict_test_sentences(model, summary_manager, config, step, plots: bool):
+    """Mels and wavs of the test sentences, logged unless
+    ``summary_manager`` is None (a model rank other than 0)."""
     path = Path(config.get('test_sentences_file', 'config/test_sentences.txt'))
     if not path.exists():
         path = Path('config/test_sentences.txt')
@@ -104,6 +111,8 @@ def predict_test_sentences(model, summary_manager, config, step, plots: bool):
     for i, text in enumerate(path.read_text().splitlines()):
         if text.strip():
             mel = model.predict(text)['mel']
+            if summary_manager is None:
+                continue
             if plots:
                 summary_manager.add_image(f'TestSentences/{i}_mel', mel_png(mel), step)
             summary_manager.display_audio(f'TestSentences/{i}_wav', mel, step)
@@ -141,7 +150,8 @@ def train(cm, args, device) -> dict:
         cm.print_config()
     mesh.barrier()
     if mesh.grouped:
-        print(f'rank {mesh.rank} of {mesh.size}, data-parallel')
+        print(f'rank {mesh.rank} of {mesh.size} (data {mesh.data_rank} of {mesh.data_size}, '
+              f'model {mesh.model_rank} of {mesh.model_size})')
     config = cm.config
 
     model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(INIT_SEED))
@@ -214,8 +224,9 @@ def train(cm, args, device) -> dict:
                                           keep_n=keep_n, mesh=mesh)
         if step % save_freq == 0 and step >= save_start:
             model.step = step
+            full = unsharded(model, mesh)   # every rank: a sharded model gathers
             if mesh.is_main:
-                model.save_model(cm.base_dir / f'model_step_{step}')
+                full.save_model(cm.base_dir / f'model_step_{step}')
             mesh.barrier()
         if step % val_freq == 0:
             result = validate(trainer, val_data, summary_manager, step, plots)
@@ -224,7 +235,9 @@ def train(cm, args, device) -> dict:
                     summary_manager.add_scalar('Meta/validation_time', result[1], step)
                 if result[0] is not None:
                     validation[step] = result[0]
-        if step % pred_freq == 0 and step >= pred_start and mesh.is_main:
+        if step % pred_freq == 0 and step >= pred_start and mesh.data_rank == 0:
+            # the model ranks of data row 0 together: a sharded model's
+            # collectives span the row; rank 0 alone logs
             predict_test_sentences(model, summary_manager, config, step, plots)
     if pending is not None and mesh.is_main:
         log_step(*pending)

@@ -13,9 +13,9 @@ backward, in float32 for the published Aligner (13 of each a micro-batch:
 4 encoder, 5 decoder causal self-attentions, 4 cross-attentions); the last
 block's cross-attention is eager in every step, as in inference.
 
-``mesh=`` trains over the data axis (``training/base_trainer.py``); the
-diagonal penalty then counts the real samples of the whole batch, as the
-JAX loss counts them over the whole sharded batch.
+``mesh=`` trains over the mesh (``training/base_trainer.py``); the
+diagonal penalty then counts the real samples of the whole batch over the
+data ranks, as the JAX loss counts them over the whole sharded batch.
 """
 import functools
 from typing import Optional
@@ -38,7 +38,7 @@ def aligner_loss(model, batch: dict, r: int, stop_loss, force_encoder_diagonal: 
     Returns (total loss, (losses, model outputs)). ``need_weights`` (by
     default: when a diagonal is forced) takes the eager attention, which
     returns every map. With ``mesh`` every count is the whole batch's over
-    the mesh's ranks."""
+    the mesh's data ranks."""
     if need_weights is None:
         need_weights = force_encoder_diagonal or force_decoder_diagonal
     tokens = batch['tokens']

@@ -1,20 +1,24 @@
 """Shared trainer scaffolding, the counterpart of
 ``transformertts_tpu/training/base_trainer.py``: the optimizer and its step
 count, batches moved to the device, the per-step dropout generator,
-gradient accumulation, and data parallelism over the mesh's ``data`` axis.
+gradient accumulation, and the mesh: data parallelism over its ``data``
+axis, tensor parallelism over its ``model`` axis and ZeRO-1.
 
-Data parallelism (``mesh``, a ``parallel.ProcessMesh`` with a process
-group): every rank is handed the same global batch. It is padded with zero
-rows to a multiple of the mesh's size, split into the ``grad_accumulation``
-micro-batches, and only then does each rank take its contiguous slice of
-each micro-batch, the order of the JAX ``accumulate_grads`` over a sharded
-batch. Each rank's losses divide by the whole micro-batch's counts
-(``utils/losses.py``), so summing the gradients over the ranks (one
-all-reduce before the Adam step) gives the gradient of the global loss.
-Logged losses are summed over the ranks, and per-sample outputs gathered in
-batch order, so every rank returns what one process would. Each rank draws
-its own dropout stream. Tensor parallelism and ZeRO-1 of the JAX package
-are not ported (``parallel.MeshConfig`` refuses ``model`` > 1).
+The mesh (``mesh``, a ``parallel.ProcessMesh`` with a process group):
+every rank is handed the same global batch. It is padded with zero rows to
+a multiple of the mesh's data size, split into the ``grad_accumulation``
+micro-batches, and only then does each data rank take its contiguous slice
+of each micro-batch, the order of the JAX ``accumulate_grads`` over a
+sharded batch; the model ranks of one data row take the same slice. Each
+rank's losses divide by the whole micro-batch's counts (``utils/losses.py``),
+so summing the gradients over the data ranks gives the gradient of the
+global loss. Logged losses are summed over the data ranks, and per-sample
+outputs gathered in batch order, so every rank returns what one process
+would. Each data rank draws its own dropout stream, and the model ranks of
+a data row draw the same one. At ``model`` > 1 the trainer shards the model
+(``parallel/tensor_parallel.py``) after rank 0's parameters are broadcast;
+the optimizer (``training/state.py``'s ``FlatAdam``) holds the parameters
+and gradients in flat buffers and applies ZeRO-1 at ``data`` > 1.
 """
 from typing import Dict, List, Sequence, Tuple
 
@@ -24,6 +28,7 @@ import torch
 from transformertts_torch.parallel.mesh import (ProcessMesh, all_reduce_sum,
                                                 broadcast_module, gather_rows,
                                                 pad_batch_to_multiple, shard_batch)
+from transformertts_torch.parallel.tensor_parallel import shard_model
 from transformertts_torch.training.state import make_optimizer, set_learning_rate
 
 _MASK64 = 2 ** 64 - 1
@@ -80,8 +85,8 @@ def _flat_items(aux: dict, prefix=()):
 
 def global_aux(aux: dict, n_rows: int, mesh: ProcessMesh) -> dict:
     """One micro-batch's ``aux`` over the whole mesh: the scalars (losses,
-    each this rank's part of the global loss) summed over the ranks in one
-    all-reduce, the per-sample tensors gathered in rank order with the
+    each this rank's part of the global loss) summed over the data ranks in
+    one all-reduce, the per-sample tensors gathered in data rank order with the
     padding rows of the slicing dropped (``n_rows``: the micro-batch's rows
     before it)."""
     items = list(_flat_items(aux))
@@ -98,8 +103,10 @@ def global_aux(aux: dict, n_rows: int, mesh: ProcessMesh) -> dict:
 
 class BaseTrainer:
     """Owns the optimizer, the step count, the dropout generators and the
-    mesh (by default the process group's, or one process without one).
-    Subclasses define ``loss(batch, training, generator, **options) ->
+    mesh (by default the process group's data axis, or one process without
+    one). It broadcasts rank 0's parameters, shards the model over the
+    mesh's ``model`` axis, then moves the parameters into the optimizer's
+    flat buffers. Subclasses define ``loss(batch, training, generator, **options) ->
     (loss, aux)`` with their losses over ``self.mesh``; ``train_step`` and
     ``val_step`` pass their keyword options on to it."""
 
@@ -110,8 +117,9 @@ class BaseTrainer:
         self.model = model
         self.mesh = mesh if mesh is not None else ProcessMesh.current()
         broadcast_module(model, self.mesh)
+        shard_model(model, self.mesh)
         self.schedule = learning_rate_schedule
-        self.optimizer = make_optimizer(model.parameters())
+        self.optimizer = make_optimizer(model, self.mesh)
         self.base_rng_seed = int(base_rng_seed)
         self.grad_accumulation = int(grad_accumulation)
         self.step = 0
@@ -122,12 +130,13 @@ class BaseTrainer:
 
     def step_generator(self, step: int) -> torch.Generator:
         """The dropout generator of ``step``, seeded from (base seed, step,
-        rank): a step is reproducible, resuming does not replay earlier
-        masks, and no two ranks draw the same masks. Rank 0's stream is that
-        of one process."""
+        data rank): a step is reproducible, resuming does not replay earlier
+        masks, no two data ranks draw the same masks, and the model ranks of
+        one data row draw the same ones (their replicated activations must
+        stay equal). Rank 0's stream is that of one process."""
         gen = torch.Generator(device=self.device)
         return gen.manual_seed(rank_seed(self.base_rng_seed * 2 ** 32 + int(step),
-                                         self.mesh.rank))
+                                         self.mesh.data_rank))
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Numeric fields as tensors on the model's device (integer fields as
@@ -146,36 +155,37 @@ class BaseTrainer:
         raise NotImplementedError
 
     def shard(self, batch: Dict[str, np.ndarray], n: int) -> List[Tuple[dict, int]]:
-        """The global ``batch`` padded to a multiple of the mesh's size, cut
-        into ``n`` micro-batches, and this rank's slice of each on the
-        device, with the micro-batch's rows before slicing."""
+        """The global ``batch`` padded to a multiple of the mesh's data size,
+        cut into ``n`` micro-batches, and this data rank's slice of each on
+        the device, with the micro-batch's rows before slicing."""
         batch = {k: np.asarray(v) for k, v in batch.items()
                  if np.asarray(v).dtype.kind not in 'US'}
-        micro = split_batch(pad_batch_to_multiple(batch, self.mesh.size), n)
-        return [(self.to_device(shard_batch(mb, self.mesh.rank, self.mesh.size)),
+        data = self.mesh.data_size
+        micro = split_batch(pad_batch_to_multiple(batch, data), n)
+        return [(self.to_device(shard_batch(mb, self.mesh.data_rank, data)),
                  next(iter(mb.values())).shape[0]) for mb in micro]
 
     def _global_aux(self, aux: dict, n_rows: int) -> dict:
         return global_aux(aux, n_rows, self.mesh) if self.mesh.grouped else aux
 
     def reduce_gradients(self):
-        """Sum the gradients over the mesh's ranks, in one all-reduce."""
-        if not self.mesh.grouped:
-            return
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), self.mesh)
-        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(part.view_as(g))
+        """Sum the gradients over the mesh's data ranks. Every parameter's
+        ``.grad`` is a view into the optimizer's flat gradient buffer, which
+        the collective takes whole: one reduce-scatter into this rank's
+        ZeRO-1 share at ``data`` > 1, one all-reduce at ``data`` 1 in a
+        group; no copy in or out. The model ranks need no sum: the sharded
+        parameters' gradients are their own, the replicated ones' equal."""
+        self.optimizer.reduce_gradients()
 
     def train_step(self, batch: Dict[str, np.ndarray], **options) -> dict:
         """One Adam update on the mean of the micro-batch gradients (one
-        micro-batch unless ``grad_accumulation`` > 1), summed over the mesh.
-        Returns the detached losses and per-sample outputs of the whole
-        batch."""
+        micro-batch unless ``grad_accumulation`` > 1), summed over the mesh's
+        data ranks. Returns the detached losses and per-sample outputs of the
+        whole batch."""
         micro = self.shard(batch, self.grad_accumulation)
         set_learning_rate(self.optimizer, self.schedule, self.step)
         generator = self.step_generator(self.step)
-        self.optimizer.zero_grad(set_to_none=True)
+        self.optimizer.zero_grad()
         auxes = []
         for mb, n_rows in micro:
             loss, aux = self.loss(mb, True, generator, **options)

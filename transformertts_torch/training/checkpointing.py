@@ -8,9 +8,13 @@ schedule's count, each parameter group in the sorted order of the JAX
 parameter paths and in the JAX (Keras) layouts of ``models/persistence.py``.
 So a checkpoint written by either package resumes in the other. Files are
 written under a temporary name and renamed, so a crash never leaves a torn
-checkpoint that looks complete; ``keep_n`` prunes older ones. Under data
-parallelism (``mesh=``) rank 0 alone writes and every rank waits at a
-barrier for it; every rank restores the same file.
+checkpoint that looks complete; ``keep_n`` prunes older ones. Over a mesh
+(``mesh=``) every rank first gathers the full state with the optimizer's
+mesh (parameters over the model group, ZeRO-1's moment shares over the data
+group, then the moments over the model group), rank 0 alone writes and
+every rank waits at a barrier for it; every rank restores the same file and
+keeps its own parts. So a checkpoint moves between any two meshes and
+either package.
 """
 import os
 import re
@@ -18,9 +22,10 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from transformertts_torch.models.persistence import params_from_jax, params_to_jax
+from transformertts_torch.parallel.tensor_parallel import (full_state_dict, full_tensors,
+                                                           local_part)
 
 # fullmatch-anchored: '.tmp_ckpt_<n>.npz', a torn write, is never a checkpoint
 _CKPT_RE = re.compile(r'ckpt_(\d+)\.npz')
@@ -31,24 +36,16 @@ def _jax_order(flat: Dict[str, np.ndarray]) -> List[str]:
     return sorted(flat, key=lambda path: path.split('/'))
 
 
-def _adam_moments(model, optimizer):
-    """(count, exp_avg state dict, exp_avg_sq state dict); zeros before the
-    first update."""
-    count, mu, nu = 0, {}, {}
-    for name, p in model.named_parameters():
-        state = optimizer.state.get(p, {})
-        if state:
-            count = int(state['step'])
-        mu[name] = state.get('exp_avg', torch.zeros_like(p))
-        nu[name] = state.get('exp_avg_sq', torch.zeros_like(p))
-    return count, mu, nu
-
-
 def flatten_state(model, optimizer, step: int) -> Dict[str, np.ndarray]:
-    params = params_to_jax(model.state_dict())
+    """The leaves of ``ckpt_{step}.npz`` at full width: ``optimizer`` (a
+    ``training.state.FlatAdam``) gathers over its mesh, so every rank of a
+    mesh calls this alike."""
+    mesh = optimizer.mesh
+    params = params_to_jax(full_state_dict(model, mesh))
     order = _jax_order(params)
-    count, mu, nu = _adam_moments(model, optimizer)
-    mu, nu = params_to_jax(mu), params_to_jax(nu)
+    count, mu, nu = optimizer.moments()
+    mu = params_to_jax(full_tensors(model, mu, mesh))
+    nu = params_to_jax(full_tensors(model, nu, mesh))
     leaves = ([np.asarray(step, np.int32)] + [params[p] for p in order]
               + [np.asarray(count, np.int32)] + [mu[p] for p in order]
               + [nu[p] for p in order] + [np.asarray(count, np.int32)])
@@ -56,9 +53,11 @@ def flatten_state(model, optimizer, step: int) -> Dict[str, np.ndarray]:
 
 
 def load_state(flat: Dict[str, np.ndarray], model, optimizer) -> int:
-    """Fill ``model`` and ``optimizer`` from flattened leaves; returns the step.
-    With ``optimizer`` None (inference) the Adam moments are read past and
-    dropped."""
+    """Fill ``model`` and ``optimizer`` from flattened leaves (full width);
+    returns the step. A tensor-parallel model keeps its model rank's part of
+    each sharded parameter and moment, and the optimizer its ZeRO-1 share
+    of the moments. With ``optimizer`` None (inference, an unsharded model)
+    the Adam moments are read past and dropped."""
     order = _jax_order(params_to_jax(model.state_dict()))
     n = len(order)
     leaves = [flat[f'leaf_{i:05d}'] for i in range(len(flat))]
@@ -66,21 +65,20 @@ def load_state(flat: Dict[str, np.ndarray], model, optimizer) -> int:
         raise ValueError(f'checkpoint has {len(leaves)} leaves; a TrainState of this '
                          f'model with Adam has {3 * n + 3}')
     step, count = int(leaves[0]), int(leaves[n + 1])
+    mesh = optimizer.mesh if optimizer is not None else None
+    params = dict(model.named_parameters())
 
-    def group(start):   # n leaves from ``start`` as a state dict
-        return params_from_jax(dict(zip(order, leaves[start:start + n])))
+    def group(start):   # n leaves from ``start`` as this rank's state dict
+        full = params_from_jax(dict(zip(order, leaves[start:start + n])))
+        if mesh is None:
+            return full
+        return {k: local_part(params[k], v, mesh) if k in params else v
+                for k, v in full.items()}
 
     model.load_state_dict(group(1), strict=True)
     if optimizer is None:
         return step
-    mu, nu = group(n + 2), group(2 * n + 2)
-    optimizer.state.clear()
-    if count > 0:
-        for name, p in model.named_parameters():
-            optimizer.state[p] = {
-                'step': torch.tensor(float(count), dtype=torch.float32),
-                'exp_avg': mu[name].to(p.device, p.dtype),
-                'exp_avg_sq': nu[name].to(p.device, p.dtype)}
+    optimizer.load_moments(count, group(n + 2), group(2 * n + 2))
     return step
 
 
@@ -102,21 +100,20 @@ def save_checkpoint(directory, model, optimizer, step: int, keep_n: int = None,
                     keep_every: int = None, mesh=None) -> Path:
     """Write ckpt_{step}.npz atomically; prune to the ``keep_n`` newest,
     always keeping steps divisible by ``keep_every``. With ``mesh`` (a
-    ``parallel.ProcessMesh``) only its rank 0 writes, and every rank returns
-    once the file is complete."""
-    path = Path(directory) / f'ckpt_{step}.npz'
-    if mesh is not None:
-        if mesh.is_main:
-            save_checkpoint(directory, model, optimizer, step, keep_n, keep_every)
+    ``parallel.ProcessMesh``) every rank gathers the state, only its rank 0
+    writes, and every rank returns once the file is complete."""
+    directory = Path(directory)
+    path = directory / f'ckpt_{step}.npz'
+    leaves = flatten_state(model, optimizer, step)
+    if mesh is not None and not mesh.is_main:
         mesh.barrier()
         return path
-    directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f'.tmp_ckpt_{step}.npz'
     for stale in directory.glob('.tmp_ckpt_*.npz'):
         stale.unlink(missing_ok=True)
     with open(tmp, 'wb') as f:
-        np.savez(f, **flatten_state(model, optimizer, step))
+        np.savez(f, **leaves)
     os.replace(tmp, path)
     if keep_n is not None:
         ckpts = list_checkpoints(directory)
@@ -124,6 +121,8 @@ def save_checkpoint(directory, model, optimizer, step: int, keep_n: int = None,
             if keep_every and s > 0 and s % keep_every == 0:
                 continue
             f.unlink(missing_ok=True)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 

@@ -2,7 +2,7 @@
 ``transformertts_tpu/training/forward_trainer.py``: the teacher-forced
 forward with target durations and pitch, weighted masked-MAE losses
 [mel 1, duration 1, pitch 3], one Adam update. ``mesh=`` trains over the
-data axis (``training/base_trainer.py``).
+mesh (``training/base_trainer.py``).
 """
 import functools
 
@@ -22,7 +22,7 @@ def forward_loss(model, batch: dict, training: bool, generator=None,
     rightly have zero duration or zero pitch and must still be supervised.
     ``need_weights`` takes the eager attention, which also returns the
     attention weights, in place of the fused kernels. With ``mesh`` each
-    loss divides by the count of the whole batch over the mesh's ranks."""
+    loss divides by the count of the whole batch over the mesh's data ranks."""
     tokens = batch['tokens']
     mel_target = batch['mel']
     dur_target = batch['durations'][..., None].float()

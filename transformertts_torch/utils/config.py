@@ -11,8 +11,9 @@ reduction schedule's first r) and its trainer (a ``ForwardTrainer`` or an
 ``AlignerTrainer``) come from the merged config;
 ``load_model`` restores a model from a training checkpoint of either package.
 Models go to the card unless the caller names another device. The config's
-``mesh: {data, model}`` and ``multihost`` select data-parallel training
-(``get_mesh``, ``parallel/mesh.py``).
+``mesh: {data, model}`` and ``multihost`` select the training mesh: data
+parallelism, tensor parallelism over ``model`` and ZeRO-1 (``get_mesh``,
+``parallel/mesh.py``).
 """
 import shutil
 import subprocess
@@ -128,8 +129,9 @@ class TrainingConfigManager:
     def get_mesh(self, device='cuda'):
         """This process's place on the config's ``mesh: {data, model}``: the
         process group of a torchrun launch, brought up for ``device`` (NCCL
-        on a card, gloo on the CPU), or one process without one. ``data``
-        must be -1 or the world size, and ``model`` 1; anything else raises.
+        on a card, gloo on the CPU), with its data and model subgroups, or
+        one process without one. ``data × model`` must be the world size
+        (``data`` -1: ``world // model``); anything else raises.
         ``multihost: true`` needs nothing more: torchrun's group spans hosts
         the same way."""
         from transformertts_torch.parallel.mesh import maybe_initialize_distributed
@@ -138,7 +140,9 @@ class TrainingConfigManager:
     def get_trainer(self, model, mesh=None):
         """The trainer of this config's model kind, an ``AlignerTrainer`` or
         a ``ForwardTrainer``, over ``mesh`` (by default ``get_mesh`` for the
-        model's device)."""
+        model's device). The trainer broadcasts rank 0's parameters, shards
+        ``model`` in place over the mesh's ``model`` axis and holds its
+        parameters in the optimizer's flat buffers."""
         if mesh is None:
             mesh = self.get_mesh(next(model.parameters()).device)
         schedule = self.config['learning_rate_schedule']

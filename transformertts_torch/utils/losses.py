@@ -6,10 +6,12 @@ weighted sum of per-output losses. All reduce in float32.
 
 Data parallelism: given a ``mesh`` (``parallel.ProcessMesh``) with a
 process group, a loss divides this rank's numerator by the count of the
-whole batch, summed over the ranks without gradient, as the JAX losses
-count over the whole sharded batch. The ranks' losses then sum to the
+whole batch, summed over the data ranks without gradient, as the JAX losses
+count over the whole sharded batch. The data ranks' losses then sum to the
 global loss, and so do their gradients; averaging per-rank means would
-differ wherever ranks hold different numbers of real rows or frames.
+differ wherever ranks hold different numbers of real rows or frames. The
+model ranks of a data row hold the same rows, so the count goes over the
+data group only (over the world it would count each row ``model`` times).
 Without a group the losses are those of one process.
 """
 from typing import Callable, List, Sequence, Tuple
@@ -20,7 +22,7 @@ from transformertts_torch.parallel.mesh import all_reduce_sum
 
 
 def global_count(count: torch.Tensor, mesh=None) -> torch.Tensor:
-    """``count`` summed over the mesh's processes, without gradient;
+    """``count`` summed over the mesh's data ranks, without gradient;
     ``count`` itself without a process group."""
     if mesh is None or not mesh.grouped:
         return count

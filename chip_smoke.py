@@ -114,7 +114,8 @@ prints no result):
    clips/s; one ``predict`` at max_length 400 in decode steps/s with its K1
    launches a step; and the share of one bfloat16 batch's durations equal to
    the float32 ones (printed, not gated: random weights give near-uniform
-   maps);
+   maps), and that batch's kernel path against its all-eager path in
+   bfloat16 (gated in phase 13);
 12. Aligner training: the published ``aligner_settings`` (f32, dropout 0.1)
    from the seeded weights of ``train_aligner``, on the featurization
    slice's data dir through ``transformertts_torch.train_aligner`` (its
@@ -128,7 +129,26 @@ prints no result):
    loss must fall, and the synthetic language of tests/convergence_check.py
    trained 2,500 steps at d 48 on the kernels, whose extracted durations
    must come within 1.5 frames of the known ones;
-13. data parallelism (``parallel/mesh.py``) at world size 1, the one
+13. the Aligner at bfloat16 (``aligner_bf16_phase``): what K1-K4 use on the
+   card in bfloat16 at each head width (D 64 must not spill, D 64 and 256
+   must fit a block an SM); K2, K3 and K4 against their plain versions at
+   ``ALIGNER_BWD_CASES`` (dropout 0 and 0.1), K1 at the decode steps of
+   ``ALIGNER_CASES``, each timed beside its plain version,
+   ``scaled_dot_product_attention`` in bfloat16 and its bound; the
+   published ``aligner_settings`` at ``compute_dtype: bfloat16`` through
+   ``train_aligner.main`` as in phase 12 (13 K2/K3/K4 launches a plain
+   step, finite losses, a resume whose checkpoint holds float32 leaves) and
+   ms a step at the same buckets beside phase 12's; the synthetic language
+   trained 2,500 steps at bfloat16 (MAE < 1.5 frames); phase 12's
+   float32-trained language weights in a bfloat16 forward, whose durations
+   must equal the float32 forward's in ``BF16_SAME_WEIGHTS_SHARE`` of the
+   tokens; phase 11's bfloat16 batch, kernel path against all-eager
+   (``BF16_ROUTE_MAP_ATOL``, ``BF16_ROUTE_SAME``); ``predict`` at bfloat16
+   to ``PREDICT_MAX_LENGTH`` (401 steps, K1 2 · blocks - 1 a step, a finite
+   mel); then tests/convergence_check.py's ForwardTransformer half on the
+   kernels (its model, seed and 700 steps; the mean mel loss of the last
+   20 steps under a quarter of the first 20's);
+14. data parallelism (``parallel/mesh.py``) at world size 1, the one
    card the machine has: ``python -m torch.distributed.run --standalone
    --nproc_per_node 1`` runs ``transformertts_torch.train_tts`` (its
    ``main``, in this script's ``--train-child`` mode, which counts the
@@ -149,7 +169,7 @@ prints no result):
    32-line chunk both ways; and K1-K4 at head width 100, which their
    wrappers pad to 104, against the plain versions in float32 and
    bfloat16, with a head of 384 taking ``MultiHeadAttention``'s eager path;
-14. tensor parallelism (the mesh's ``model`` axis) and ZeRO-1 on the one
+15. tensor parallelism (the mesh's ``model`` axis) and ZeRO-1 on the one
    card (``model_parallel_phase``): gloo groups of 2 and 4 ranks
    (``--mp-child``, started without torchrun's environment), every rank on
    the card, beside one process alone; the collectives the mesh runs on
@@ -166,7 +186,7 @@ prints no result):
    each data rank ⌈n/D⌉ of the Adam state; ``mesh: {data: 1, model: 2}``
    refused under torchrun; ``profile_train`` with an NCCL group of one
    (launches, kernel ms, peak memory);
-15. the last three lines: the kernels' JSON record (each kernel's time, its
+16. the last three lines: the kernels' JSON record (each kernel's time, its
    plain version's, one PyTorch library call's that computes the same
    function, and its bound: the larger of the FLOPs the function needs
    (for K5 an FFT's) over the card's peak rate for their type and its
@@ -242,6 +262,16 @@ ALIGNER_CASES = [((6, 4, 777, 777, 64), True, None), (ALIGNER_SELF_SHAPE, True, 
 # 5 decoder blocks
 ALIGN_MAP_TOL = dict(atol=1e-4, rtol=0)
 ALIGNER_R1_STEP = 130000   # the published reduction schedule's r = 1 from here
+# the Aligner at bfloat16: the share of token durations that the float32-
+# trained synthetic-language weights give in a bfloat16 forward equal to
+# the float32 forward's (the JAX package measured 95.8 %), and the bars of
+# the published-width extraction batch's kernel path against its all-eager
+# path, both in bfloat16: about 3x the map difference and 5x the share of
+# unequal durations measured (1.94e-3 and 0.9894; H100 80GB HBM3, 700 W;
+# PERF.md)
+BF16_SAME_WEIGHTS_SHARE = 0.90
+BF16_ROUTE_MAP_ATOL = 6e-3
+BF16_ROUTE_SAME = 0.95
 PREDICT_MAX_LENGTH = 400
 # the published Aligner's training attentions at the config's largest bucket,
 # B16 x 896 frames x 160 tokens, (B, H, Tq, Tk, D) and causal: the decoder's
@@ -472,13 +502,46 @@ def _sdpa_backend(q, k, v, mask, dropout_p: float) -> str:
     return SDPBackend(choice).name
 
 
+def _attention_bounds(shape, causal: bool, elem: int, peak: str) -> dict:
+    """K1-K4's bounds at ``shape`` (B, H, Tq, Tk, D): the products the causal
+    mask leaves (K1 and K2 two, S and P·V; K3 three, S, dP and dS·K; K4
+    four, S, dP, dV and dK; each 2·kept·D FLOPs) over the ``peak`` rate, and
+    the bytes, each input read once and each output written once: rows of
+    ``elem`` bytes (q, k, v, dO, O and the gradients) and the float32
+    bias, (m, log l) pairs and D rows."""
+    b, h, tq, tk, d = shape
+    kept = b * h * (sum(min(r + 1, tk) for r in range(tq)) if causal else tq * tk)
+    q_row, k_row = elem * b * h * tq * d, elem * b * h * tk * d
+    lse, dsum, bias = 8 * b * h * tq, 4 * b * h * tq, 4 * b * tk
+    return {
+        # in: q, k, v, bias; out: o
+        'K1': bound(4 * kept * d, 2 * q_row + 2 * k_row + bias, peak),
+        # in: q, k, v, bias; out: o, (m, log l)
+        'K2': bound(4 * kept * d, 2 * q_row + 2 * k_row + lse + bias, peak),
+        # in: q, k, v, dO, (m, log l), D, bias; out: dQ
+        'K3': bound(6 * kept * d, 3 * q_row + 2 * k_row + lse + dsum + bias, peak),
+        # in: q, k, v, dO, (m, log l), D, bias; out: dK, dV
+        'K4': bound(8 * kept * d, 2 * q_row + 4 * k_row + lse + dsum + bias, peak)}
+
+
+def _library_mask(q, bias, causal: bool):
+    """The additive (B, 1, 1 or Tq, Tk) mask of ``scaled_dot_product_attention``
+    in q's dtype: the key bias, plus the look-ahead when ``causal``."""
+    mask = bias[:, None, None, :]
+    if causal:
+        tq, tk = q.shape[2], bias.shape[1]
+        mask = mask + torch.triu(torch.full((tq, tk), -1e9, device=bias.device), diagonal=1)
+    return mask.to(q.dtype)
+
+
 def _resources(label: str, query, tile: str, dtype: str = 'bf16',
-               gated=(192,)) -> dict:
+               gated=(192,), fit=()) -> dict:
     """Log what a kernel uses on the card at each head-width template
     (``query(d)``, one of ops.flash_attention's ``*_resources``); raise if a
     ``gated`` width (the bf16 kernels' training and serving width, D 192;
     the f32 forward's Aligner widths, D 64 and 256) spills or fits no
-    block. Returns the first gated width's resources."""
+    block, or a ``fit`` width fits no block. Returns the first gated
+    width's resources."""
     by_d = {d: query(d) for d in (64, 128, 192, 256)}
     for d, r in by_d.items():
         log(f'{label} {dtype} at D {d}: {r["registers"]} registers a thread, '
@@ -490,6 +553,9 @@ def _resources(label: str, query, tile: str, dtype: str = 'bf16',
         if by_d[d]['spill_bytes'] != 0 or by_d[d]['blocks_per_sm'] < 1:
             raise AssertionError(f'{label} {dtype} at D {d} spills or does not fit: '
                                  f'{by_d[d]}')
+    for d in fit:
+        if by_d[d]['blocks_per_sm'] < 1:
+            raise AssertionError(f'{label} {dtype} at D {d} does not fit: {by_d[d]}')
     return by_d[gated[0]]
 
 
@@ -527,9 +593,7 @@ def kernel_phase() -> dict:
         backend = _sdpa_backend(q, k, v, mask, 0.0)
         library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask))
-        b, h, tq, tk, d = shape
-        limit = bound(4 * b * h * tq * tk * d,
-                      2 * (2 * b * h * tq * d + 2 * b * h * tk * d) + 4 * b * tk, 'bf16')
+        limit = _attention_bounds(shape, False, 2, 'bf16')['K1']
         log(f'bf16 {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
             f'scaled_dot_product_attention ({backend}) {library_ms:.4f} ms, bound '
             f'{limit["bound_ms"]:.4f} ms ({limit["bound_by"]})')
@@ -549,6 +613,60 @@ def _rel_l2(mine, want) -> float:
     return ((mine.float() - want.float()).norm() / want.float().norm()).item()
 
 
+def _check_trainable_case(shape, causal: bool, dtype, rate: float, gen, label: str = ''):
+    """K2 (output and logsumexp), K3 (dQ) and K4 (dK, dV) against their
+    plain versions at one case, with one (seed, offset) at dropout
+    ``rate``; in bfloat16 also dQ, dK and dV within ``GRAD_REL_L2_BAR``
+    relative L2 of the plain version in float32 on the same inputs. Returns
+    ({K2, K3, K4: max |kernel - plain|}, {dq, dk, dv: relative L2}, empty in
+    float32)."""
+    fa, _ = _trainable_ops()
+    fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    grad_tol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
+    # a softmax over one key has no gradient to its logit: dQ and dK are 0
+    # at Tk 1, and only their absolute bar applies
+    zero = ('dq', 'dk') if shape[3] == 1 else ()
+    q, k, v, bias = _qkv(shape, dtype, gen)
+    dout = torch.randn(q.shape, device='cuda', generator=gen).to(dtype)
+    args = (causal, rate, 1234, 5678)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
+    dq = fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, *args)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.attention_fwd_lse_plain(q, k, v, bias, *args)
+    ref = fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, *args)
+    checks = (('K2', 'out', out, ref_out, fwd_tol), ('K2', 'lse', lse, ref_lse, F32_TOL),
+              ('K3', 'dq', dq, ref[0], grad_tol), ('K4', 'dk', dk, ref[1], grad_tol),
+              ('K4', 'dv', dv, ref[2], grad_tol))
+    errors = {'K2': 0.0, 'K3': 0.0, 'K4': 0.0}
+    for name, what, mine, want, tol in checks:
+        if not torch.isfinite(mine).all():
+            raise AssertionError(f'{name} not finite at {shape} {dtype} {rate}')
+        if what not in zero and not want.abs().max() > 0:
+            raise AssertionError(f'{name}: the plain {what} is all zero')
+        torch.testing.assert_close(mine.float(), want.float(), **tol)
+        errors[name] = max(errors[name], (mine.float() - want.float()).abs().max().item())
+    rels, rel = {}, ''
+    if dtype == torch.bfloat16:
+        # the plain K3 and K4 in float32 from the same bf16 inputs
+        ref32 = fa.attention_bwd_plain(q.float(), k.float(), v.float(), bias, out.float(), lse,
+                                       dout.float(), *args)
+        rels = {n: _rel_l2(g, r) for n, g, r in zip(('dq', 'dk', 'dv'), (dq, dk, dv), ref32)
+                if n not in zero}
+        if not max(rels.values()) < GRAD_REL_L2_BAR:
+            raise AssertionError(f'K3/K4 relative L2 error {rels} at {shape} dropout {rate}, '
+                                 f'bar {GRAD_REL_L2_BAR}')
+        rel = '; relative L2 vs float32 plain ' + ' '.join(f'{n} {x:.3g}'
+                                                           for n, x in rels.items())
+    log(f'{label}{dtype} {shape} causal={causal} dropout={rate}: max |kernel - plain| '
+        f'out {(out.float() - ref_out.float()).abs().max().item():.3g} '
+        f'dq {(dq.float() - ref[0].float()).abs().max().item():.3g} '
+        f'dk {(dk.float() - ref[1].float()).abs().max().item():.3g} '
+        f'dv {(dv.float() - ref[2].float()).abs().max().item():.3g} '
+        f'(max |plain dq| {ref[0].float().abs().max().item():.3g}){rel}')
+    return errors, rels
+
+
 def trainable_kernel_phase() -> dict:
     """K2, K3 and K4 against the plain versions in both dtypes (and
     ``EDGE_CASES`` in bfloat16), at dropout 0 and 0.1 with one (seed,
@@ -562,57 +680,12 @@ def trainable_kernel_phase() -> dict:
     errors = {'K2': 0.0, 'K3': 0.0, 'K4': 0.0}
     rel_l2 = {'dq': 0.0, 'dk': 0.0, 'dv': 0.0}   # bf16, the decoder's training shape
     for dtype in (torch.float32, torch.bfloat16):
-        fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        grad_tol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
         for shape, causal in cases + (EDGE_CASES if dtype == torch.bfloat16 else []):
-            # a softmax over one key has no gradient to its logit: dQ and dK
-            # are 0 at Tk 1, and only their absolute bar applies
-            zero = ('dq', 'dk') if shape[3] == 1 else ()
             for rate in (0.0, 0.1):
-                q, k, v, bias = _qkv(shape, dtype, gen)
-                dout = torch.randn(q.shape, device='cuda', generator=gen).to(dtype)
-                args = (causal, rate, 1234, 5678)
-                out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
-                dq = fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout, *args)
-                dk, dv = fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout, *args)
-                torch.cuda.synchronize()
-                ref_out, ref_lse = fa.attention_fwd_lse_plain(q, k, v, bias, *args)
-                ref = fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, *args)
-                checks = (('K2', 'out', out, ref_out, fwd_tol),
-                          ('K2', 'lse', lse, ref_lse, F32_TOL),
-                          ('K3', 'dq', dq, ref[0], grad_tol), ('K4', 'dk', dk, ref[1], grad_tol),
-                          ('K4', 'dv', dv, ref[2], grad_tol))
-                for name, what, mine, want, tol in checks:
-                    if not torch.isfinite(mine).all():
-                        raise AssertionError(f'{name} not finite at {shape} {dtype} {rate}')
-                    if what not in zero and not want.abs().max() > 0:
-                        raise AssertionError(f'{name}: the plain {what} is all zero')
-                    torch.testing.assert_close(mine.float(), want.float(), **tol)
-                    errors[name] = max(errors[name],
-                                       (mine.float() - want.float()).abs().max().item())
-                rel = ''
-                if dtype == torch.bfloat16:
-                    # the plain K3 and K4 in float32 from the same bf16 inputs
-                    ref32 = fa.attention_bwd_plain(q.float(), k.float(), v.float(), bias,
-                                                   out.float(), lse, dout.float(), *args)
-                    rels = {n: _rel_l2(g, r) for n, g, r in zip(('dq', 'dk', 'dv'),
-                                                                 (dq, dk, dv), ref32)
-                            if n not in zero}
-                    if not max(rels.values()) < GRAD_REL_L2_BAR:
-                        raise AssertionError(f'K3/K4 relative L2 error {rels} at {shape} '
-                                             f'dropout {rate}, bar {GRAD_REL_L2_BAR}')
-                    if shape == TRAIN_DECODER_SHAPE:
-                        rel_l2 = {n: max(rel_l2[n], x) for n, x in rels.items()}
-                    rel = '; relative L2 vs float32 plain ' + ' '.join(
-                        f'{n} {x:.3g}' for n, x in rels.items())
-                    del ref32
-                log(f'{dtype} {shape} causal={causal} dropout={rate}: max |kernel - plain| '
-                    f'out {(out.float() - ref_out.float()).abs().max().item():.3g} '
-                    f'dq {(dq.float() - ref[0].float()).abs().max().item():.3g} '
-                    f'dk {(dk.float() - ref[1].float()).abs().max().item():.3g} '
-                    f'dv {(dv.float() - ref[2].float()).abs().max().item():.3g} '
-                    f'(max |plain dq| {ref[0].float().abs().max().item():.3g}){rel}')
-                del q, k, v, dout, out, lse, dq, dk, dv, ref_out, ref_lse, ref
+                errs, rels = _check_trainable_case(shape, causal, dtype, rate, gen)
+                errors = {n: max(errors[n], e) for n, e in errs.items()}
+                if shape == TRAIN_DECODER_SHAPE and rels:
+                    rel_l2 = {n: max(rel_l2[n], x) for n, x in rels.items()}
     resources = {label: _resources(label, query, tile) for label, query, tile in (
         ('K2', lambda d: fa.fwd_resources(d, True), 'stages'),
         ('K3', fa.dq_resources, 'key_tile'), ('K4', fa.dkv_resources, 'query_tile'))}
@@ -645,23 +718,8 @@ def trainable_kernel_phase() -> dict:
             f'{t["K2"] + t["K3"] + t["K4"]:.4f} ms vs {t["plain_fwd"] + t["plain_bwd"]:.4f} ms '
             f'(plain at dropout 0: {plain0:.4f} ms); row_dot {t["row_dot"]:.4f} ms once a '
             f'backward')
-        t.update(_library_training_attention(q, k, v, bias[:, None, None, :].to(q.dtype),
-                                             dout))
-        b, h, tq, tk, d = shape
-        # bf16 rows of q or o, dO or dQ (each b·h·tq·d) and of k, v, dK or dV
-        # (each b·h·tk·d); float32 bias, (m, log l) pairs and D rows
-        q_row, k_row = 2 * b * h * tq * d, 2 * b * h * tk * d
-        lse_bytes, dsum_bytes, bias_bytes = 8 * b * h * tq, 4 * b * h * tq, 4 * b * tk
-        t['bounds'] = {
-            # in: q, k, v, bias; out: o, (m, log l)
-            'K2': bound(4 * b * h * tq * tk * d,
-                        2 * q_row + 2 * k_row + lse_bytes + bias_bytes, 'bf16'),
-            # in: q, k, v, dO, (m, log l), D, bias; out: dQ
-            'K3': bound(6 * b * h * tq * tk * d,
-                        3 * q_row + 2 * k_row + lse_bytes + dsum_bytes + bias_bytes, 'bf16'),
-            # in: q, k, v, dO, (m, log l), D, bias; out: dK, dV
-            'K4': bound(8 * b * h * tq * tk * d,
-                        2 * q_row + 4 * k_row + lse_bytes + dsum_bytes + bias_bytes, 'bf16')}
+        t.update(_library_training_attention(q, k, v, _library_mask(q, bias, False), dout))
+        t['bounds'] = _attention_bounds(shape, False, 2, 'bf16')
         log(f'  bounds: ' + ', '.join(f'{k} {v["bound_ms"]:.4f} ms ({v["bound_by"]})'
                                       for k, v in t['bounds'].items()))
         record[name] = dict(shape=list(shape), **t)
@@ -1513,9 +1571,7 @@ def aligner_f32_times(gen) -> dict:
     q, k, v, bias = _qkv(ALIGNER_SELF_SHAPE, torch.float32, gen)
     ms = _time_ms(lambda: fa.flash_attention(q, k, v, bias, True))
     plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v, bias, True))
-    # the library's additive (B, 1, T, T) mask: key padding plus the look-ahead
-    look_ahead = torch.triu(torch.full((t, t), -1e9, device='cuda'), diagonal=1)
-    mask = bias[:, None, None, :] + look_ahead
+    mask = _library_mask(q, bias, True)
     backend = _sdpa_backend(q, k, v, mask, 0.0)
     library_ms = _time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
     # the products the causal mask leaves: row i takes keys 0..i; on the
@@ -1599,6 +1655,12 @@ def _durations_of_batch(model, batch):
     return maps, durations
 
 
+def _same_share(ours, theirs) -> float:
+    """The share of token durations equal between two lists of per-sample
+    duration arrays."""
+    return float(np.mean(np.concatenate([a == b for a, b in zip(ours, theirs)])))
+
+
 def aligner_phase(cfg) -> dict:
     """Stage 3 on the card: the published Aligner in float32 through
     extract_durations over the featurization slice's data dir, then predict
@@ -1662,18 +1724,19 @@ def aligner_phase(cfg) -> dict:
     maps, durations = _durations_of_batch(model, batch)
     map_err = (maps[False] - maps[True]).abs().max().item()
     torch.testing.assert_close(maps[False], maps[True], **ALIGN_MAP_TOL)
-    same = np.mean(np.concatenate([a == b for a, b in zip(durations[False], durations[True])]))
+    same = _same_share(durations[False], durations[True])
     log(f'one batch {tuple(batch["mel"].shape)}: kernel-path last-block maps vs all-eager, max '
         f'|diff| {map_err:.3g} (bar {ALIGN_MAP_TOL["atol"]}); durations equal {same:.4f}')
 
-    # the same weights in bfloat16, one batch
-    model16 = Aligner.from_config({**model.config, 'compute_dtype': 'bfloat16'}, device=DEVICE)
-    model16.load_state_dict(model.state_dict())
-    model16.set_constants(reduction_factor=1)
-    _, durations16 = _durations_of_batch(model16, batch)
-    share16 = np.mean(np.concatenate([a == b for a, b in zip(durations16[False],
-                                                              durations[False])]))
-    log(f'bfloat16 batch: share of token durations equal to the float32 ones {share16:.4f}')
+    # the same weights in bfloat16, one batch, on both routes
+    model16 = bf16_copy(model)
+    maps16, durations16 = _durations_of_batch(model16, batch)
+    share16 = _same_share(durations16[False], durations[False])
+    route16_err = (maps16[False] - maps16[True]).abs().max().item()
+    route16_same = _same_share(durations16[False], durations16[True])
+    log(f'bfloat16 batch: share of token durations equal to the float32 ones {share16:.4f}; '
+        f'kernel-path last-block maps vs all-eager, max |diff| {route16_err:.3g}, durations '
+        f'equal {route16_same:.4f}')
 
     # predict: random weights say nothing about when to stop, so the stop
     # class's bias is pushed down and the decode runs to max_length
@@ -1698,7 +1761,18 @@ def aligner_phase(cfg) -> dict:
         f'{steps / decode_s:.1f} steps/s, K1 launches {n_enc} for the encoder and '
         f'{per_step:.0f} a step ({n_dec} self, {n_dec - 1} cross)')
     return {'launches': launches, 'clips_per_s': clips_per_s, 'steps_per_s': steps / decode_s,
-            'bf16_same_share': share16, 'map_err': map_err, **stats}
+            'bf16_same_share': share16, 'map_err': map_err, 'bf16_route_map_err': route16_err,
+            'bf16_route_same': route16_same, 'checkpoint': ckpt, **stats}
+
+
+def bf16_copy(model):
+    """An Aligner of ``model``'s config and weights at compute dtype
+    bfloat16, on the card, at ``model``'s r."""
+    from transformertts_torch.models.aligner import Aligner
+    model16 = Aligner.from_config({**model.config, 'compute_dtype': 'bfloat16'}, device=DEVICE)
+    model16.load_state_dict(model.state_dict())
+    model16.set_constants(reduction_factor=model.r)
+    return model16
 
 
 def aligner_backward_phase() -> dict:
@@ -1782,11 +1856,7 @@ def _f32_backward_times(shape, causal: bool, gen, names=('K3', 'K4'), plain=Fals
     if plain:
         result['plain_bwd'] = _time_ms(
             lambda: fa.attention_bwd_plain(q, k, v, bias, out, lse, dout, *args), iters=5)
-    # the library's additive (B, 1, Tq, Tk) mask: key padding plus the look-ahead
-    mask = bias[:, None, None, :]
-    if causal:
-        mask = mask + torch.triu(torch.full((tq, tk), -1e9, device='cuda'), diagonal=1)
-    result.update(_library_training_attention(q, k, v, mask, dout))
+    result.update(_library_training_attention(q, k, v, _library_mask(q, bias, causal), dout))
     # the products the causal mask leaves: K3 three (S, dP, dS·K), K4 four
     # (S, dP, dV, dK), each 2·kept·D; float32 inputs q, k, v, dO, (m, log l),
     # D and bias read once, dQ or dK and dV written once
@@ -1824,20 +1894,20 @@ def _aligner_session(cfg, work: Path, overrides: dict) -> Path:
     return path
 
 
-def aligner_training_phase(cfg) -> dict:
-    """Stage 2's training half on the card: the published Aligner (f32,
-    dropout 0.1) through ``train_aligner.main`` on the featurization slice's
-    data dir, at r = 10 with both diagonals forced, then at r = 1 with
-    neither, covering a plotting step, a checkpoint, validation, predictions
-    and a resume; timed steps at the config's three buckets; the synthetic
-    language's convergence on the kernels."""
+def _train_aligner_runs(cfg, work: Path, overrides: dict = None):
+    """The published Aligner (``overrides`` in its settings) through
+    ``train_aligner.main`` on the featurization slice's data dir, at r = 10
+    with both diagonals forced, then at r = 1 with neither, covering a
+    plotting step, a checkpoint, validation, predictions and a resume; it
+    fails unless every loss is finite and K2/K3/K4 launch 13 times a
+    micro-batch on a step that neither forces nor plots and 0 times on one
+    that does. Returns the first run (its steps, launches, validation) and
+    the session's config manager."""
     from transformertts_torch import train_aligner
-    from transformertts_torch.profile_train import aligner_batch
     from transformertts_torch.training import checkpointing
     from transformertts_torch.training.aligner_trainer import AlignerTrainer
     from transformertts_torch.utils.config import TrainingConfigManager
     _, ops = _trainable_ops()
-    work = WORK / 'align_train'
     if work.exists():
         shutil.rmtree(work)
     schedule = dict(reduction_factor_schedule=[[0, 10], [2, 1]],
@@ -1865,7 +1935,8 @@ def aligner_training_phase(cfg) -> dict:
     try:
         runs = []
         for max_steps in (6, 8):
-            session = _aligner_session(cfg, work, {**schedule, 'max_steps': max_steps})
+            session = _aligner_session(cfg, work, {**schedule, **(overrides or {}),
+                                                   'max_steps': max_steps})
             for f in ops:
                 f.launches = 0
             del steps[:]
@@ -1904,8 +1975,19 @@ def aligner_training_phase(cfg) -> dict:
                 f'{" plot" if st["plot"] else ""} {st["launches"][0]} launches loss '
                 f'{st["loss"]:.4f}' for st in run['steps']))
     log(f'validation loss at step 6: {first["validation"][6]:.4f}; checkpoints {ckpts}')
+    return first, cm
 
-    # timed steps at the config's buckets (r = 1) and the largest at r = 10
+
+def _aligner_step_ms(cm) -> dict:
+    """ms a step of ``cm``'s Aligner (its compute dtype, dropout 0.1), the
+    median of steps 4-13 of 30 on one batch, at the config's buckets (r = 1)
+    and the largest at r = 10 (``ALIGNER_TRAIN_BUCKETS``); every step must
+    launch K2/K3/K4 13 times and give a finite loss, and the middle bucket's
+    loss must fall over its 30 steps."""
+    from transformertts_torch.profile_train import aligner_batch
+    from transformertts_torch.training.aligner_trainer import AlignerTrainer
+    _, ops = _trainable_ops()
+    dtype = cm.config['compute_dtype']
     times = {}
     for i, (b, frames, n_tok, r) in enumerate(ALIGNER_TRAIN_BUCKETS):
         model = cm.get_model('cpu').init_params(torch.Generator().manual_seed(SEED)).to(DEVICE)
@@ -1928,8 +2010,8 @@ def aligner_training_phase(cfg) -> dict:
         head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
         if not np.isfinite(losses).all():
             raise AssertionError(f'Aligner B{b} x {frames}f r {r}: loss {losses}')
-        log(f'Aligner train step B{b} x {frames} frames x {n_tok} tokens, r {r}, f32, dropout '
-            f'0.1: median {ms:.2f} ms (steps 4-13: {[round(x * 1e3, 2) for x in step_s[3:13]]}), '
+        log(f'Aligner train step B{b} x {frames} frames x {n_tok} tokens, r {r}, {dtype}, '
+            f'dropout 0.1: median {ms:.2f} ms (steps 4-13: {[round(x * 1e3, 2) for x in step_s[3:13]]}), '
             f'{b * frames / (ms / 1e3):.1f} mel frames/s; K2/K3/K4 13 a step; loss of steps '
             f'1-5 {head:.4f}, of steps 26-30 {tail:.4f}')
         times[f'B{b}x{frames}r{r}'] = ms
@@ -1937,7 +2019,16 @@ def aligner_training_phase(cfg) -> dict:
         if i == 1 and not tail < head:
             raise AssertionError(f'30 Aligner steps on one batch: loss {losses}')
         del model, trainer
+    return times
 
+
+def aligner_training_phase(cfg) -> dict:
+    """Stage 2's training half on the card: the published Aligner (f32,
+    dropout 0.1) through ``train_aligner.main`` (``_train_aligner_runs``);
+    timed steps at the config's three buckets; the synthetic language's
+    convergence on the kernels."""
+    first, cm = _train_aligner_runs(cfg, WORK / 'align_train')
+    times = _aligner_step_ms(cm)
     conv = synthetic_language_convergence(DEVICE)
     log(f'synthetic language, d 48, 2,500 steps on the kernels: extracted-duration MAE '
         f'{conv["duration_mae"]:.3f} frames (mean true duration {conv["mean_duration"]:.2f}; '
@@ -1945,6 +2036,210 @@ def aligner_training_phase(cfg) -> dict:
     if not conv['duration_mae'] < 1.5:
         raise AssertionError(f'the port\'s Aligner did not learn the synthetic language: {conv}')
     return {'launches': first['launches'], 'ms_per_step': times, 'convergence': conv}
+
+
+def aligner_bf16_kernel_checks() -> dict:
+    """The Aligner's kernels in bfloat16: what K1-K4 use on the card at each
+    head width (D 64 must not spill; D 64 and 256 must fit a block an SM);
+    K2, K3 and K4 against their plain versions at ``ALIGNER_BWD_CASES`` at
+    dropout 0 and 0.1, K1 at the decode steps of ``ALIGNER_CASES``; then
+    each timed at those shapes (dropout 0.1) beside its plain version,
+    ``scaled_dot_product_attention`` in bfloat16 and its bound."""
+    fa, _ = _trainable_ops()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    resources = {}
+    for label, query, tile in (('K1', lambda d: fa.fwd_resources(d, False), 'stages'),
+                               ('K2', lambda d: fa.fwd_resources(d, True), 'stages'),
+                               ('K3', fa.dq_resources, 'key_tile'),
+                               ('K4', fa.dkv_resources, 'query_tile')):
+        resources[label] = {'d64': _resources(label, query, tile, gated=(64,), fit=(256,)),
+                            'd256': query(256)}
+    errors = {'K1': 0.0, 'K2': 0.0, 'K3': 0.0, 'K4': 0.0}
+    rel_l2 = {'dq': 0.0, 'dk': 0.0, 'dv': 0.0}
+    for shape, causal in ALIGNER_BWD_CASES:
+        for rate in (0.0, 0.1):
+            errs, rels = _check_trainable_case(shape, causal, torch.bfloat16, rate, gen,
+                                               'Aligner ')
+            errors.update({n: max(errors[n], e) for n, e in errs.items()})
+            rel_l2 = {n: max(rel_l2[n], x) for n, x in rels.items()}
+    decodes = [(shape, step) for shape, _, step in ALIGNER_CASES if step is not None]
+    for shape, step in decodes:
+        q, k, v, bias = _aligner_qkv(shape, torch.bfloat16, gen, step)
+        out = fa.flash_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref = fa.attention_plain(q, k, v, bias)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f'K1 bf16 output not finite at {shape}')
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        err = (out.float() - ref.float()).abs().max().item()
+        errors['K1'] = max(errors['K1'], err)
+        log(f'Aligner bf16 decode step {shape}, cache step {step}: max |K1 - plain| {err:.3g}')
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for shape, causal in ALIGNER_BWD_CASES:
+        q, k, v, bias = _qkv(shape, torch.bfloat16, gen)
+        dout = torch.randn(q.shape, device='cuda', generator=gen).to(torch.bfloat16)
+        args = (causal, 0.1, 1234, 5678)
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, bias, *args)
+        dsum = fa.row_dot(dout, out)
+        t = dict(
+            K2=_time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v, bias, *args)),
+            K3=_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, bias, out, lse, dout,
+                                                          *args, dsum=dsum)),
+            K4=_time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, out, lse, dout,
+                                                           *args, dsum=dsum)),
+            plain_fwd=_time_ms(lambda: fa.attention_fwd_lse_plain(q, k, v, bias, *args),
+                               iters=5),
+            plain_bwd=_time_ms(lambda: fa.attention_bwd_plain(q, k, v, bias, out, lse, dout,
+                                                              *args), iters=5))
+        t.update(_library_training_attention(q, k, v, _library_mask(q, bias, causal), dout))
+        t['bounds'] = _attention_bounds(shape, causal, 2, 'bf16')
+        log(f'bf16 Aligner {shape} causal={causal}, dropout 0.1: K2 {t["K2"]:.4f} ms (plain '
+            f'{t["plain_fwd"]:.4f}, library {t["library_fwd"]:.4f}, bound '
+            f'{t["bounds"]["K2"]["bound_ms"]:.4f}), K3 {t["K3"]:.4f} + K4 {t["K4"]:.4f} ms '
+            f'(plain backward {t["plain_bwd"]:.4f}, library backward {t["library_bwd"]:.4f}, '
+            f'bounds {t["bounds"]["K3"]["bound_ms"]:.4f} + {t["bounds"]["K4"]["bound_ms"]:.4f} '
+            f'({t["bounds"]["K4"]["bound_by"]}))')
+        times['x'.join(map(str, shape))] = dict(shape=list(shape), causal=causal, **t)
+        del q, k, v, dout, out, lse, dsum
+    for shape, step in decodes:
+        q, k, v, bias = _aligner_qkv(shape, torch.bfloat16, gen, step)
+        mask = bias[:, None, None, :].to(q.dtype)
+        t = dict(K1=_time_ms(lambda: fa.flash_attention(q, k, v, bias)),
+                 plain=_time_ms(lambda: fa.attention_plain(q, k, v, bias)),
+                 library=_time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
+                 library_backend=_sdpa_backend(q, k, v, mask, 0.0),
+                 bound=_attention_bounds(shape, False, 2, 'bf16')['K1'])
+        log(f'bf16 Aligner decode step {shape}: K1 {t["K1"]:.4f} ms, plain {t["plain"]:.4f}, '
+            f'scaled_dot_product_attention ({t["library_backend"]}) {t["library"]:.4f}, bound '
+            f'{t["bound"]["bound_ms"]:.4f} ({t["bound"]["bound_by"]})')
+        times['decode_' + 'x'.join(map(str, shape))] = dict(shape=list(shape), **t)
+    return {'resources': resources, 'errors': errors, 'rel_l2': rel_l2, 'times': times}
+
+
+def aligner_bf16_phase(cfg, extraction: dict, f32_train: dict) -> dict:
+    """The Aligner at compute dtype bfloat16 on the card: its kernels
+    (``aligner_bf16_kernel_checks``); ``train_aligner.main`` as the float32
+    phase runs it, whose resumed checkpoint must hold float32 leaves; ms a
+    step at the config's buckets beside the float32 phase's; the synthetic
+    language trained at bfloat16 (duration MAE < 1.5 frames); the float32
+    phase's trained language weights run in bfloat16 (durations equal to
+    the float32 forward's in at least ``BF16_SAME_WEIGHTS_SHARE`` of the
+    tokens) and the extraction phase's bfloat16 batch, kernel path against
+    the all-eager path (``BF16_ROUTE_MAP_ATOL``, ``BF16_ROUTE_SAME``);
+    ``predict`` at bfloat16 to ``PREDICT_MAX_LENGTH``; then the
+    ForwardTransformer half of tests/convergence_check.py on the kernels."""
+    from transformertts_torch.models.aligner import Aligner
+    from transformertts_torch.ops.duration_extraction import get_durations_from_alignment
+    from transformertts_torch.ops.flash_attention import flash_attention
+    from transformertts_torch.training import checkpointing
+    _, ops = _trainable_ops()
+    t0 = time.perf_counter()
+    kernels = aligner_bf16_kernel_checks()
+    seconds = {'kernels': time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    first, cm = _train_aligner_runs(cfg, WORK / 'align_train_bf16',
+                                    {'compute_dtype': 'bfloat16'})
+    resumed = cm.load_model(device=DEVICE, verbose=False)
+    with np.load(checkpointing.list_checkpoints(cm.weights_dir)[-1][1]) as data:
+        leaf_dtypes = {data[k].dtype for k in data.files if data[k].dtype.kind == 'f'}
+    if (leaf_dtypes != {np.dtype(np.float32)} or resumed.compute_dtype != torch.bfloat16
+            or any(p.dtype != torch.float32 for p in resumed.parameters())):
+        raise AssertionError(f'the bf16 run\'s checkpoint leaves {leaf_dtypes}, or its model '
+                             f'not bf16 on float32 parameters')
+    ms = _aligner_step_ms(cm)
+    seconds['train_aligner'] = time.perf_counter() - t0
+    log('Aligner ms/step, bf16 beside f32 (f32 / bf16): ' + ', '.join(
+        f'{k} {v:.2f} vs {f32_train["ms_per_step"][k]:.2f} '
+        f'({f32_train["ms_per_step"][k] / v:.2f})' for k, v in ms.items()))
+
+    t0 = time.perf_counter()
+    for f in ops:
+        f.launches = 0
+    conv = synthetic_language_convergence(DEVICE, compute_dtype='bfloat16')
+    conv_launches = _launch_counts(ops)
+    seconds['language'] = time.perf_counter() - t0
+    conv32 = f32_train['convergence']
+    log(f'synthetic language at bf16, {conv["steps"]} steps on the kernels (K2/K3/K4 '
+        f'{conv_launches}): extracted-duration MAE {conv["duration_mae"]:.3f} frames (f32 '
+        f'{conv32["duration_mae"]:.3f}; bar 1.5), last loss {conv["final_loss"]:.4f}, '
+        f'{conv["seconds"]:.1f} s')
+    if not conv['duration_mae'] < 1.5 or min(conv_launches) == 0:
+        raise AssertionError(f'the bf16 Aligner did not learn the synthetic language on the '
+                             f'kernels: MAE {conv["duration_mae"]}, launches {conv_launches}')
+
+    # the float32-trained language weights through a bfloat16 forward
+    t0 = time.perf_counter()
+    model32 = Aligner(**conv32['config'])
+    model32.load_state_dict(conv32['weights'])
+    model16 = bf16_copy(model32)
+    batch = conv32['batch']
+    with torch.inference_mode():
+        out = model16.apply(torch.as_tensor(batch['tokens'], device=DEVICE),
+                            torch.as_tensor(batch['mel'][:, :-1], device=DEVICE), 1,
+                            need_weights=True)
+    attn = out['decoder_attention']['Decoder_LastBlock_CrossAttention'][:8]
+    if attn.dtype != torch.float32:
+        raise AssertionError(f'the bf16 last-block map is {attn.dtype}, not float32')
+    durations16 = get_durations_from_alignment(attn, batch['mel'][:8], batch['tokens'][:8],
+                                               weighted=True)[0]
+    same_weights = _same_share(durations16, conv32['durations'])
+    log(f'f32-trained language weights in bf16: token durations equal to the f32 forward\'s '
+        f'{same_weights:.4f} (bar {BF16_SAME_WEIGHTS_SHARE}); published-width extraction batch '
+        f'in bf16, kernel path vs all-eager: last-block maps max |diff| '
+        f'{extraction["bf16_route_map_err"]:.3g} (bar {BF16_ROUTE_MAP_ATOL}), durations equal '
+        f'{extraction["bf16_route_same"]:.4f} (bar {BF16_ROUTE_SAME})')
+    if (same_weights < BF16_SAME_WEIGHTS_SHARE
+            or not extraction['bf16_route_map_err'] <= BF16_ROUTE_MAP_ATOL
+            or extraction['bf16_route_same'] < BF16_ROUTE_SAME):
+        raise AssertionError('bf16 extraction off its bars')
+
+    # predict at bf16 to PREDICT_MAX_LENGTH, the stop class held off
+    model16 = cm.load_model(extraction['checkpoint'], device=DEVICE, verbose=False)
+    if model16.compute_dtype != torch.bfloat16 or model16.r != 1:
+        raise AssertionError(f'the bf16 session built a {model16.compute_dtype} Aligner at r '
+                             f'{model16.r}')
+    with torch.no_grad():
+        model16.decoder_postnet.stop_linear.bias[2] = -1e4
+    sentence = (ROOT / 'config' / 'test_sentences.txt').read_text().splitlines()[0]
+    model16.predict(sentence, max_length=8)   # warm-up
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t1 = time.perf_counter()
+    pred = model16.predict(sentence, max_length=PREDICT_MAX_LENGTH)
+    decode_s = time.perf_counter() - t1
+    steps = pred['n_steps']
+    n_enc, n_dec = len(model16.encoder.dense_layers), len(model16.decoder.blocks)
+    per_step = (flash_attention.launches - n_enc) / steps
+    if steps != PREDICT_MAX_LENGTH + 1 or per_step != 2 * n_dec - 1 \
+            or not np.isfinite(pred['mel']).all():
+        raise AssertionError(f'bf16 predict: {steps} steps, {flash_attention.launches} K1 '
+                             f'launches')
+    predict_launches = flash_attention.launches
+    log(f'bf16 predict "{sentence[:40]}...": {steps} decode steps in {decode_s:.3f} s, '
+        f'{steps / decode_s:.1f} steps/s, K1 launches {n_enc} for the encoder and '
+        f'{per_step:.0f} a step')
+    seconds['extraction_predict'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for f in ops:
+        f.launches = 0
+    tts = forward_language_convergence(DEVICE)
+    tts_launches = _launch_counts(ops)
+    seconds['tts_language'] = time.perf_counter() - t0
+    log(f'ForwardTransformer synthetic language, {tts["steps"]} steps on the kernels (K2/K3/K4 '
+        f'{tts_launches}): mean mel loss of the first 20 steps {tts["first"]:.4f}, of the last '
+        f'20 {tts["last"]:.4f} (bar 0.25x), {tts["seconds"]:.1f} s')
+    if not tts['last'] < 0.25 * tts['first'] or tts_launches != [2 * tts['steps']] * 3:
+        raise AssertionError(f'the port\'s ForwardTransformer did not learn the synthetic '
+                             f'language on the kernels: {tts}, launches {tts_launches}')
+    log('aligner_bf16_phase parts: ' + ', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()))
+    return {'kernels': kernels, 'launches': first['launches'], 'ms_per_step': ms,
+            'convergence_mae': conv['duration_mae'], 'same_weights': same_weights,
+            'predict_launches': predict_launches, 'steps_per_s': steps / decode_s,
+            'tts_convergence': tts}
 
 
 LANG_MEL, LANG_VOCAB = 20, 20   # the synthetic language's mel channels and tokens
@@ -1971,14 +2266,16 @@ def make_language(rng, n_samples=64, n_tok=12, mel_channels=LANG_MEL):
     return samples
 
 
-def synthetic_language_convergence(device, steps: int = 2500) -> dict:
+def synthetic_language_convergence(device, steps: int = 2500,
+                                   compute_dtype: str = 'float32') -> dict:
     """tests/convergence_check.py's Aligner half on the port: an Aligner at d
-    48 (heads [2] / [2, 2], f32, dropout 0.1, prenet dropout 0.3, r 1)
-    trained ``steps`` steps of B16 on the synthetic language at 3e-4, the
-    encoder's diagonal forced for 100 steps and the decoder's for 800, then
-    durations extracted from the last cross-attention of 8 samples (weighted
-    heads) against their known durations. Returns the mean absolute error in
-    frames, the last loss and the training wall time."""
+    48 (heads [2] / [2, 2], ``compute_dtype``, dropout 0.1, prenet dropout
+    0.3, r 1) trained ``steps`` steps of B16 on the synthetic language at
+    3e-4, the encoder's diagonal forced for 100 steps and the decoder's for
+    800, then durations extracted from the last cross-attention of 8 samples
+    (weighted heads) against their known durations. Returns the mean
+    absolute error in frames, the last loss, the training wall time, and the
+    trained weights (on the CPU), the 8-sample batch and its durations."""
     from transformertts_torch.models.aligner import Aligner
     from transformertts_torch.ops.duration_extraction import get_durations_from_alignment
     from transformertts_torch.training.aligner_trainer import AlignerTrainer
@@ -1988,7 +2285,7 @@ def synthetic_language_convergence(device, steps: int = 2500) -> dict:
     t_max = max(s[2].shape[0] for s in samples) + 2
     t_pad = -(-t_max // 16) * 16
     model = Aligner(
-        compute_dtype='float32', encoder_model_dimension=48, decoder_model_dimension=48,
+        compute_dtype=compute_dtype, encoder_model_dimension=48, decoder_model_dimension=48,
         encoder_num_heads=[2], decoder_num_heads=[2, 2], encoder_max_position_encoding=128,
         decoder_max_position_encoding=256, encoder_prenet_dimension=48,
         decoder_prenet_dimension=48, dropout_rate=0.1, mel_start_value=0.5,
@@ -2029,7 +2326,55 @@ def synthetic_language_convergence(device, steps: int = 2500) -> dict:
     errors = [np.abs(durations[i].astype(np.float32)[:len(samples[i][1])]
                      - samples[i][1]).mean() for i in range(8)]
     return {'duration_mae': float(np.mean(errors)), 'final_loss': loss, 'seconds': seconds,
-            'mean_duration': float(np.mean([s[1].mean() for s in samples]))}
+            'mean_duration': float(np.mean([s[1].mean() for s in samples])), 'steps': steps,
+            'weights': {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            'config': dict(model.config), 'batch': batch, 'durations': durations}
+
+
+def tts_language_batch(samples, idx) -> dict:
+    """tests/convergence_check.py's ForwardTransformer batch of the samples
+    ``idx``: tokens, their durations, the mels padded to a multiple of 16
+    frames of the longest sample, zero pitch."""
+    n_tok = len(samples[0][0])
+    t_pad = -(-max(s[2].shape[0] for s in samples) // 16) * 16
+    toks = np.zeros((len(idx), n_tok), np.int32)
+    durs = np.zeros((len(idx), n_tok), np.float32)
+    mel = np.zeros((len(idx), t_pad, LANG_MEL), np.float32)
+    for row, i in enumerate(idx):
+        t, d, m = samples[i]
+        toks[row], durs[row] = t, d
+        mel[row, :m.shape[0]] = m
+    return {'tokens': toks, 'durations': durs, 'mel': mel,
+            'pitch': np.zeros((len(idx), n_tok), np.float32)}
+
+
+def forward_language_convergence(device, steps: int = 700) -> dict:
+    """tests/convergence_check.py's ForwardTransformer half on the port: its
+    model (d 64, one block of 2 heads each side, f32, dropout 0.1), its seed
+    (0: the language, the batch draws and the weights) and its schedule
+    (3e-4), ``steps`` steps of B16 with the target durations. Returns the
+    mean mel loss of the first 20 and the last 20 steps and the wall time."""
+    from transformertts_torch.models.forward_tts import ForwardTransformer
+    from transformertts_torch.training.forward_trainer import ForwardTrainer
+    rng = np.random.default_rng(0)
+    samples = make_language(rng)
+    model = ForwardTransformer(
+        encoder_model_dimension=64, decoder_model_dimension=64, dropout_rate=0.1,
+        decoder_num_heads=[2], encoder_num_heads=[2], encoder_max_position_encoding=128,
+        decoder_max_position_encoding=256, encoder_dense_blocks=1, decoder_dense_blocks=1,
+        duration_conv_filters=[32, 16], pitch_conv_filters=[32, 16], duration_kernel_size=3,
+        pitch_kernel_size=3, predictors_dropout=0.1, mel_channels=LANG_MEL,
+        phoneme_language='en-us', with_stress=False, model_breathing=False,
+        encoder_feed_forward_dimension=64, decoder_feed_forward_dimension=64)
+    model.init_params(torch.Generator().manual_seed(0)).to(device)
+    trainer = ForwardTrainer(model, [(0, 3e-4), (10 ** 6, 3e-4)])
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        aux = trainer.train_step(tts_language_batch(samples, rng.integers(0, len(samples), 16)))
+        losses.append(aux['mel'].item())
+    return {'first': float(np.mean(losses[:20])), 'last': float(np.mean(losses[-20:])),
+            'seconds': time.perf_counter() - t0, 'steps': steps}
 
 
 def train_child(kind: str, cfg: str, out: str):
@@ -2915,6 +3260,37 @@ def model_parallel_phase(card: str) -> dict:
     return result
 
 
+def _add_bf16_aligner_readings(kernels: list, aligner16: dict):
+    """Add ``aligner_bf16_phase``'s readings to the K1-K4 entries of the
+    kernels line: each shape's time, plain time, library time and bound,
+    the resources at D 64 and 256, the errors and the launches."""
+    k16 = aligner16['kernels']
+    for key, run in k16['times'].items():
+        if key.startswith('decode_'):
+            kernels[0].setdefault('aligner_bf16_decode', {})[key[len('decode_'):]] = dict(
+                ms=run['K1'], plain_ms=run['plain'], library_ms=run['library'],
+                library=f'scaled_dot_product_attention ({run["library_backend"]})',
+                **run['bound'])
+            continue
+        for i, label in enumerate(('K2', 'K3', 'K4')):
+            plain, library = (('plain_fwd', 'library_fwd') if label == 'K2'
+                              else ('plain_bwd', 'library_bwd'))
+            kernels[1 + i].setdefault('aligner_bf16', {})[key] = dict(
+                causal=run['causal'], dropout=0.1, ms=run[label], plain_ms=run[plain],
+                library_ms=run[library], library=f'scaled_dot_product_attention '
+                f'({run["library_backend"]}), bf16, dropout 0.1', **run['bounds'][label])
+    kernels[0].update(aligner_bf16_decode_max_abs_err=k16['errors']['K1'],
+                      aligner_bf16_predict_launches=aligner16['predict_launches'],
+                      aligner_bf16_resources=k16['resources']['K1'])
+    for i, label in enumerate(('K2', 'K3', 'K4')):
+        kernels[1 + i].update(aligner_bf16_training_launches=aligner16['launches'][i],
+                              aligner_bf16_max_abs_err=k16['errors'][label],
+                              aligner_bf16_resources=k16['resources'][label])
+    kernels[2].update(aligner_bf16_rel_l2_dq=k16['rel_l2']['dq'])
+    kernels[3].update(aligner_bf16_rel_l2_dk=k16['rel_l2']['dk'],
+                      aligner_bf16_rel_l2_dv=k16['rel_l2']['dv'])
+
+
 def _timed(phase, *args):
     """``phase(*args)``, with its wall seconds logged."""
     t0 = time.perf_counter()
@@ -2942,6 +3318,7 @@ def main():
     aligner_bwd = _timed(aligner_backward_phase)
     aligner = _timed(aligner_phase, featurize['config'])
     aligner_train = _timed(aligner_training_phase, featurize['config'])
+    aligner16 = _timed(aligner_bf16_phase, featurize['config'], aligner, aligner_train)
     data_parallel = _timed(data_parallel_phase, result['model_dir'], card)
     model_parallel = _timed(model_parallel_phase, card)
     times = serving['times']
@@ -3025,6 +3402,7 @@ def main():
                 f'f32_{key}_library_ms': run['library_bwd'],
                 f'f32_{key}_library': f'scaled_dot_product_attention '
                                       f'({run["library_backend"]}), f32 backward'})
+    _add_bf16_aligner_readings(kernels, aligner16)
     big, small = log_mel['times'][262144], log_mel['times'][131072]
     kernels.append({
         'name': 'fused_log_mel', 'route': 'cuda',
@@ -3065,6 +3443,13 @@ def main():
                                          in aligner_train['ms_per_step'].items())
         + f'; synthetic-language duration MAE '
         f'{aligner_train["convergence"]["duration_mae"]:.3f} frames')
+    log(f'Aligner at bf16 ({card}): ' + ', '.join(
+        f'{k} {v:.2f} ms/step (f32 {aligner_train["ms_per_step"][k]:.2f})'
+        for k, v in aligner16['ms_per_step'].items())
+        + f'; synthetic-language duration MAE {aligner16["convergence_mae"]:.3f} frames; '
+        f'same-weights durations {aligner16["same_weights"]:.4f}; predict '
+        f'{aligner16["steps_per_s"]:.1f} decode steps/s; ForwardTransformer language mel loss '
+        f'{aligner16["tts_convergence"]["first"]:.4f} -> {aligner16["tts_convergence"]["last"]:.4f}')
     dp_tts, dp_aligner = data_parallel['tts'], data_parallel['aligner']
     log(f'data parallelism at world size 1 ({card}), synchronized steps in turns on one '
         f'batch: TTS {dp_tts["ms_per_step"]:.3f} ms/step on an NCCL group of one, '

@@ -9,7 +9,9 @@ dropout 0.1, Adam) with weights drawn from a seed, times 15 synchronized
 ``train_step`` calls on one synthetic batch of B32 x 128 tokens x 512
 frames (the step chip_smoke.py times); with ``--aligner`` the config's
 Aligner (f32, dropout 0.1) at r = 1 on B16 x 896 frames x 160 tokens, the
-published buckets' largest, with no diagonal forced. Then it records 5
+published buckets' largest, with no diagonal forced. Each model computes in
+its settings' ``compute_dtype``: a session yaml with ``compute_dtype:
+bfloat16`` in ``aligner_settings`` profiles the bf16 Aligner. Then it records 5
 more under ``torch.profiler`` and prints, per step: the unprofiled ms
 (median of the warm steps after the third), the kernel time by kind and
 the busiest kernels, the kernel launches, the device time covered

@@ -108,3 +108,36 @@ def test_predict_tts_writes_a_readable_wav(models, tmp_path, batched):
     wav, sr = load_wav(next((tmp_path / 'outputs' / 'lines').glob('*.wav')))
     assert sr == 22050
     assert wav.size > 0 and np.isfinite(wav).all() and np.abs(wav).max() > 0
+
+
+def test_predict_tts_trace_writes_the_spans_as_a_chrome_trace(models, tmp_path):
+    """``--trace PATH``: one complete event a span on the epoch clock (ts ·
+    1e3 + baseTimeNanoseconds), the request's attrs, the counters; tracing
+    is off again afterwards."""
+    import json
+    import time
+
+    from transformertts_torch import predict_tts
+    from transformertts_torch.utils import tracing
+    _, _, model_dir = models
+    text = tmp_path / 'lines.txt'
+    text.write_text('\n'.join(LINES) + '\n')
+    path = tmp_path / 'spans.json'
+    before = time.time_ns()
+    predict_tts.main(['-p', str(model_dir), '-f', str(text), '-o', str(tmp_path),
+                      '--device', 'cpu', '--trace', str(path)])
+    after = time.time_ns()
+    assert not tracing.enabled()
+    trace = json.loads(path.read_text())
+    events = trace['traceEvents']
+    assert all(e['ph'] == 'X' for e in events)
+    names = [e['name'] for e in events]
+    assert names[:3] == ['request', 'frontend', 'chunk'] and names.count('chunk') == 1
+    assert events[0]['args']['sentences'] == len(LINES)
+    for e in events:
+        start = e['ts'] * 1e3 + trace['baseTimeNanoseconds']
+        assert before <= start and start + e['dur'] * 1e3 <= after
+    counters = trace['counters']
+    assert counters['requests'] == 1 and counters['rows_real'] == len(LINES)
+    wav, _ = load_wav(next((tmp_path / 'outputs' / 'lines').glob('*.wav')))
+    assert counters['audio_samples'] == wav.size

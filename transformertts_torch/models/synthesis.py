@@ -26,6 +26,15 @@ are those of one device. The caller's model is not moved. A mesh with a
 ``model`` axis spreads rows over its ``data`` axis only, with the
 parameters replicated, as the JAX package's ``_prepare_mesh`` does
 (``make_mesh`` returns each data row's first device).
+
+With ``utils.tracing`` enabled, a call records the spans ``request`` (the
+root), ``frontend``, then per chunk ``chunk`` holding ``encode`` and
+``frame_budget`` (per replica), ``decode`` and ``waveform`` (per replica),
+``to_host`` and ``trim``, and the counters ``requests``, ``sentences``,
+``chunks``, ``rows_real`` / ``row_slots``, ``tokens_real`` /
+``token_slots``, ``frames_real`` / ``frame_slots`` (the frames kept against
+batch bucket × frame bucket) and ``audio_samples``, all from host numbers
+the path already has. ``warmup_serving`` records the same chunk phases.
 """
 from typing import List, Sequence
 
@@ -34,6 +43,7 @@ import torch
 
 from transformertts_torch.models.forward_tts import FRAME_BUCKET, TOKEN_BUCKET
 from transformertts_torch.parallel.mesh import replicate
+from transformertts_torch.utils import tracing
 
 
 def _round_up(x: int, m: int) -> int:
@@ -62,15 +72,18 @@ def _replicas(model, vocoder, mesh) -> list:
     return list(zip(models, vocoders))
 
 
-def encode_chunk(model, tok: np.ndarray, n_rows: int, scalar: float = 1.0):
+def encode_chunk(model, tok: np.ndarray, n_rows: int, scalar: float = 1.0, replica: int = 0):
     """A chunk's padded tokens (its first ``n_rows`` rows real) through the
     encoder on ``model.device``: (encoder outputs, scaled durations, each
     row's frame total, the chunk's frame bucket). Row r's wav keeps
     ``max(1, totals[r] - 1)`` frames."""
-    enc = model.encode(torch.as_tensor(tok, device=model.device))
-    use = model.scaled_durations(enc, scalar)
-    totals = np.round(use.cpu().numpy()).sum(axis=1).astype(int) + 1
-    return enc, use, totals, _round_up(int(totals[:n_rows].max(initial=1)), FRAME_BUCKET)
+    with tracing.span('encode', replica=replica):
+        enc = model.encode(torch.as_tensor(tok, device=model.device))
+        use = model.scaled_durations(enc, scalar)
+    with tracing.span('frame_budget', replica=replica):
+        totals = np.round(use.cpu().numpy()).sum(axis=1).astype(int) + 1
+        frames = _round_up(int(totals[:n_rows].max(initial=1)), FRAME_BUCKET)
+    return enc, use, totals, frames
 
 
 def decode_to_wav(model, audio, enc: dict, use: torch.Tensor, frames: int,
@@ -80,27 +93,33 @@ def decode_to_wav(model, audio, enc: dict, use: torch.Tensor, frames: int,
     normalizer's silence, or ``vocoder``. Returns the peak-normalized
     (B, samples) wavs on the model's device and their hop."""
     if vocoder is not None:
-        return (model.decode_vocoder(vocoder, enc['features'], enc['pitch'], use, frames),
-                vocoder.hop_length)
-    dec = model.decode_features(enc['features'], enc['pitch'], use, frames)
-    mel = model.mask_mel_to_silence(dec, audio.silence_level())
-    return model.peak_normalize(audio.mels_to_waveforms(mel, n_iter)), audio.hop_length
+        with tracing.span('decode'):
+            mel = model.vocoder_mel(enc['features'], enc['pitch'], use, frames)
+        with tracing.span('waveform'):
+            return model.peak_normalize(vocoder(mel)), vocoder.hop_length
+    with tracing.span('decode'):
+        dec = model.decode_features(enc['features'], enc['pitch'], use, frames)
+        mel = model.mask_mel_to_silence(dec, audio.silence_level())
+    with tracing.span('waveform'):
+        return model.peak_normalize(audio.mels_to_waveforms(mel, n_iter)), audio.hop_length
 
 
 def _run_chunk(replicas, audio, tok: np.ndarray, n_rows: int, scalar: float, n_iter: int):
     """A chunk's padded tokens (its first ``n_rows`` rows real) split into
     contiguous shares, one a replica: each share encoded, then decoded at
     the chunk's one frame bucket, the largest any real row needs. Returns
-    (wavs (B, samples) on the host, each row's frame total, the hop)."""
+    (wavs (B, samples) on the host, each row's frame total, the hop, the
+    frame bucket)."""
     shares = np.split(tok, len(replicas))
     per = len(tok) // len(replicas)
-    encoded = [encode_chunk(model, share, min(max(n_rows - i * per, 0), per), scalar)
+    encoded = [encode_chunk(model, share, min(max(n_rows - i * per, 0), per), scalar, i)
                for i, ((model, _), share) in enumerate(zip(replicas, shares))]
     frames = max(e[3] for e in encoded)
     decoded = [decode_to_wav(model, audio, enc, use, frames, n_iter, vocoder)
                for (model, vocoder), (enc, use, _, _) in zip(replicas, encoded)]
-    wav = np.concatenate([w.cpu().numpy() for w, _ in decoded])
-    return wav, np.concatenate([e[2] for e in encoded]), decoded[0][1]
+    with tracing.span('to_host'):
+        wav = np.concatenate([w.cpu().numpy() for w, _ in decoded])
+    return wav, np.concatenate([e[2] for e in encoded]), decoded[0][1], frames
 
 
 @torch.inference_mode()
@@ -115,6 +134,17 @@ def synthesize_lines(model, audio, lines: Sequence[str],
     of Griffin-Lim; the model must be MelGAN-normalized. ``mesh``: the
     devices (``parallel.make_mesh``) each chunk is spread over;
     ``max_batch`` is then rounded up to a multiple of their number."""
+    with tracing.span('request', sentences=len(lines)):
+        wavs = _synthesize(model, audio, lines, speed_regulator, n_iter, max_batch, vocoder,
+                           mesh)
+    if tracing.enabled():
+        tracing.count('requests')
+        tracing.count('sentences', len(lines))
+        tracing.count('audio_samples', sum(len(w) for w in wavs))
+    return wavs
+
+
+def _synthesize(model, audio, lines, speed_regulator, n_iter, max_batch, vocoder, mesh):
     n_iter = n_iter if n_iter is not None else audio.griffin_lim_iters
     replicas = _replicas(model, vocoder, mesh)
     n_data = len(replicas)
@@ -122,24 +152,40 @@ def synthesize_lines(model, audio, lines: Sequence[str],
     scalar = float(np.float32(1.0 / speed_regulator))
     wavs: List[np.ndarray] = [None] * len(lines)
     entries = []   # (input index, tokens)
-    for i, line in enumerate(lines):
-        tokens = np.asarray(model.encode_text(line), np.int64)
-        if tokens.size == 0:
-            wavs[i] = np.zeros((0,), np.float32)
-        else:
-            entries.append((i, tokens))
+    with tracing.span('frontend'):
+        for i, line in enumerate(lines):
+            tokens = np.asarray(model.encode_text(line), np.int64)
+            if tokens.size == 0:
+                wavs[i] = np.zeros((0,), np.float32)
+            else:
+                entries.append((i, tokens))
     entries.sort(key=lambda e: len(e[1]))
 
     for s in range(0, len(entries), max_batch):
         chunk = entries[s:s + max_batch]
         n_tok = _round_up(max(len(t) for _, t in chunk), TOKEN_BUCKET)
-        tok = np.zeros((_batch_bucket(len(chunk), max_batch, n_data), n_tok), np.int64)
-        for row, (_, t) in enumerate(chunk):
-            tok[row, :len(t)] = t
-        wav, totals, hop = _run_chunk(replicas, audio, tok, len(chunk), scalar, n_iter)
-        for row, (orig_idx, _) in enumerate(chunk):
-            frames_kept = max(1, int(totals[row]) - 1)
-            wavs[orig_idx] = wav[row, :frames_kept * hop]
+        batch = _batch_bucket(len(chunk), max_batch, n_data)
+        with tracing.span('chunk', rows=len(chunk), batch=batch, tokens=n_tok) as sp:
+            tok = np.zeros((batch, n_tok), np.int64)
+            for row, (_, t) in enumerate(chunk):
+                tok[row, :len(t)] = t
+            wav, totals, hop, frames = _run_chunk(replicas, audio, tok, len(chunk), scalar,
+                                                  n_iter)
+            sp.set(frames=frames)
+            kept = 0
+            with tracing.span('trim'):
+                for row, (orig_idx, _) in enumerate(chunk):
+                    frames_kept = max(1, int(totals[row]) - 1)
+                    wavs[orig_idx] = wav[row, :frames_kept * hop]
+                    kept += frames_kept
+        if tracing.enabled():
+            tracing.count('chunks')
+            tracing.count('rows_real', len(chunk))
+            tracing.count('row_slots', batch)
+            tracing.count('tokens_real', sum(len(t) for _, t in chunk))
+            tracing.count('token_slots', batch * n_tok)
+            tracing.count('frames_real', kept)
+            tracing.count('frame_slots', batch * frames)
     return wavs
 
 
@@ -172,7 +218,8 @@ def warmup_serving(model, audio, max_batch: int = 32,
     for b in batches:
         for n_tok in token_buckets:
             share = np.ones((b // n_data, n_tok), np.int64)
-            encoded = [encode_chunk(m, share, len(share)) for m, _ in replicas]
+            encoded = [encode_chunk(m, share, len(share), replica=i)
+                       for i, (m, _) in enumerate(replicas)]
             for frames in frame_buckets:
                 for (m, voc), (enc, use, _, _) in zip(replicas, encoded):
                     decode_to_wav(m, audio, enc, use, frames, n_iter, voc)

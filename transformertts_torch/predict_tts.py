@@ -15,6 +15,9 @@ in place of Griffin-Lim. Several lines run batched through
 ``predict`` per line. ``--data_parallel N`` spreads the batched path's
 chunks over the first N cards (``parallel.make_mesh``; N copies of the CPU
 with ``--device cpu``); N larger than the number of cards raises.
+``--trace PATH`` writes the batched path's spans and counters
+(``utils.tracing``) to PATH as a Chrome-trace JSON on the epoch clock of
+``torch.profiler``'s traces.
 """
 from argparse import ArgumentParser
 from pathlib import Path
@@ -25,6 +28,7 @@ import torch
 from transformertts_torch.audio import Audio
 from transformertts_torch.models import ForwardTransformer
 from transformertts_torch.models.factory import tts_ljspeech
+from transformertts_torch.utils import tracing
 
 
 def main(argv=None):
@@ -48,6 +52,9 @@ def main(argv=None):
                         help='spread batched synthesis over the first N cards (N copies of '
                              'the CPU with --device cpu): a data-parallel mesh, batched path '
                              'only')
+    parser.add_argument('--trace', dest='trace', default=None, type=str,
+                        help="write the batched path's spans and counters to this path as a "
+                             'Chrome-trace JSON (the per-line path records none)')
     parser.add_argument('--device', dest='device', default='cuda', type=str)
     args = parser.parse_args(argv)
 
@@ -91,7 +98,13 @@ def main(argv=None):
         from transformertts_torch.models.synthesis import synthesize_lines
         if mesh is not None:
             print(f'Serving over a {len(mesh)}-device data-parallel mesh')
-        wavs = synthesize_lines(model, audio, lines, vocoder=vocoder, mesh=mesh)
+        if args.trace is not None:
+            tracing.enable()
+        try:
+            wavs = synthesize_lines(model, audio, lines, vocoder=vocoder, mesh=mesh)
+        finally:
+            if args.trace is not None:
+                tracing.disable()
         if args.single:
             for i, wav in enumerate(wavs):
                 audio.save_wav(wav, (outdir / f'{file_name}_{i}').with_suffix('.wav'))
@@ -115,6 +128,9 @@ def main(argv=None):
             if args.single:
                 audio.save_wav(wav, (outdir / f'{file_name}_{i}').with_suffix('.wav'))
     audio.save_wav(np.concatenate(wavs), output_path)
+    if args.trace is not None:
+        tracing.write_chrome_trace(args.trace, tracing.take())
+        print(f'Spans and counters written to {args.trace}')
 
 
 if __name__ == '__main__':

@@ -28,7 +28,7 @@ prints no result):
 5. serving slice: the published LJSpeech configuration (d=384, 6+6 blocks,
    2 heads, bfloat16) with weights drawn from a seed, saved as a model dir
    and loaded back; ``synthesize_lines`` over config/test_sentences.txt with
-   the launch count of K1; the bfloat16 kernel-path mel against a float32
+   the launch counts of K1 and of Griffin-Lim's kernel (n_iter + 1 a chunk); the bfloat16 kernel-path mel against a float32
    eager-attention mel under forced durations; the bench workload
    (B64 x 128 tokens -> 768 frames) in mel frames/s; the predict_tts CLI;
    then the same model dir served through both neural vocoders at their
@@ -37,10 +37,11 @@ prints no result):
    upstream-layout checkpoint (weight-norm pairs; ``{'model_g': sd}``, and
    ``{'generator': sd}`` beside a config.json) and loaded by ``load_vocoder``:
    ``synthesize_lines(..., vocoder=)`` over the test sentences with the
-   launch count of K1, wav lengths of max(1, totals - 1) hops, in
-   sentences/s and seconds of audio a second, then over a full 32-line
-   chunk (the sentences repeated; median of 3, peak memory), beside
-   Griffin-Lim on the same chunk; the generator alone on the sentences'
+   launch count of K1 (and none of Griffin-Lim's kernel), wav lengths of
+   max(1, totals - 1) hops, in sentences/s and seconds of audio a second,
+   then over a full 32-line chunk (the sentences repeated; median of 3, peak
+   memory), beside Griffin-Lim on the same chunk (n_iter + 1 launches of its
+   kernel); the generator alone on the sentences'
    chunk mel and on a 32 x 768-frame one in device ms beside its FLOPs and
    bound, and in peak memory; the card against the same module on the CPU
    on one 32-frame masked mel (``VOCODER_CPU_ATOL``), and the same with
@@ -70,6 +71,13 @@ prints no result):
    n_fft (registers, spill bytes, shared memory, blocks an SM), then timed
    with the plain version and ``torch.stft`` (cuFFT) at B16 x 262,144 and
    131,072 samples;
+7b. waveform kernel: Griffin-Lim's FFT kernel against
+   ``griffin_lim_plain`` run on the CPU (B 1-32, frames off a multiple of
+   the tile and below the halo, n_fft 256 to 2048, n_iter + 1 launches a
+   call), what it uses on the card, then timed at the serving chunks'
+   shapes (B32 x 384 and 768 frames, B1 x 128) for 32 iterations and one,
+   beside its bound, the plain version on the card, the float32 DFT-GEMM
+   form it replaced and one cuFFT iteration;
 8. featurization slice: the native VAD mask against the NumPy path on
    each of 64 seeded synthetic LJSpeech-like clips of 1-10 s (element for
    element), and ``trim_long_silences`` ms a clip, native and NumPy; then
@@ -244,7 +252,7 @@ F32_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)   # ... and its float32 bar
 WIRING_REL_L2_BAR = 1e-3
 GRAD_REL_L2_BAR = 1e-2  # bf16 dQ, dK, dV against the plain version in float32
 LOG_MEL_TOL = dict(atol=2e-4, rtol=1e-3)  # the JAX fused log-mel kernel's bar
-KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'fused_log_mel')
+KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'fused_log_mel', 'griffin_lim')
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and TF32 tensor cores,
 # float32 outside them, and HBM3
 PEAK_FLOPS = {'bf16': 989e12, 'tf32': 495e12, 'f32': 67e12}
@@ -760,11 +768,25 @@ def _batch_like_serving(model, lines):
     return tok
 
 
+def _check_gl_launches(launches: int, wavs, n_iter: int, what: str,
+                       max_batch: int = 32) -> int:
+    """Griffin-Lim's kernel launches counted over one ``synthesize_lines``
+    call against n_iter + 1 for each chunk of up to ``max_batch`` lines that
+    tokenize to something (those give wavs of at least a hop). Returns the
+    chunks."""
+    chunks = -(-sum(1 for w in wavs if len(w)) // max_batch)
+    if launches != (n_iter + 1) * chunks:
+        raise AssertionError(f'{what}: {launches} Griffin-Lim kernel launches, expected '
+                             f'{n_iter + 1} for each of {chunks} chunk(s)')
+    return chunks
+
+
 def slice_phase() -> dict:
     from transformertts_torch.audio import Audio
     from transformertts_torch.models import ForwardTransformer
     from transformertts_torch.models.synthesis import synthesize_lines
     from transformertts_torch.ops.flash_attention import flash_attention
+    from transformertts_torch.ops.griffin_lim import griffin_lim_kernel
 
     gen = torch.Generator().manual_seed(SEED)
     model_dir = WORK / 'model'
@@ -779,14 +801,16 @@ def slice_phase() -> dict:
 
     synthesize_lines(model, audio, lines)   # warm-up: cuBLAS/cuDNN plans
     torch.cuda.synchronize()
-    flash_attention.launches = 0
+    flash_attention.launches = griffin_lim_kernel.launches = 0
     t0 = time.perf_counter()
     wavs = synthesize_lines(model, audio, lines)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches, gl_launches = flash_attention.launches, griffin_lim_kernel.launches
     if launches == 0:
         raise AssertionError('synthesize_lines never launched the attention kernel')
+    gl_chunks = _check_gl_launches(gl_launches, wavs, audio.griffin_lim_iters,
+                                   'synthesize_lines')
 
     with torch.inference_mode():
         tok = _batch_like_serving(model, lines)
@@ -801,7 +825,8 @@ def slice_phase() -> dict:
     if sorted(lengths) != expected:
         raise AssertionError(f'wav lengths {lengths} != max(1, totals-1)*hop {expected}')
     log(f'synthesize_lines: {len(lines)} lines, wav samples {lengths}, kernel '
-        f'launches {launches}, {wall:.4f} s, {len(lines) / wall:.3f} sentences/s')
+        f'launches {launches}, Griffin-Lim kernel launches {gl_launches} in {gl_chunks} '
+        f'chunk(s), {wall:.4f} s, {len(lines) / wall:.3f} sentences/s')
 
     # bf16 kernel path vs f32 eager path, durations forced to the f32 model's
     model32 = ForwardTransformer.from_config({**model.config, 'compute_dtype': 'float32'},
@@ -852,7 +877,8 @@ def slice_phase() -> dict:
         raise AssertionError('predict_tts wrote no readable 22050 Hz wav')
     log(f'predict_tts: wrote {wav.size} samples at {sr} Hz')
     return {'launches': launches, 'model_dir': model_dir,
-            'sentences_per_s': len(lines) / wall}
+            'sentences_per_s': len(lines) / wall, 'gl_launches': gl_launches,
+            'gl_chunks': gl_chunks}
 
 
 def upstream_state_dict(vocoder, gain: float) -> dict:
@@ -915,23 +941,24 @@ def _write_vocoder_checkpoints(work: Path) -> dict:
 def _timed_synthesis(model, audio, lines, vocoder=None, repeats: int = 1):
     """``synthesize_lines`` after one warm-up (cuDNN plans): the wavs of the
     last call, the median wall seconds over ``repeats`` calls, K1's launches
-    in the last, and the device memory the calls peaked at beyond what was
-    held before (GB)."""
+    in the last, the device memory the calls peaked at beyond what was held
+    before (GB), and Griffin-Lim's kernel launches in the last."""
     from transformertts_torch.models.synthesis import synthesize_lines
     from transformertts_torch.ops.flash_attention import flash_attention
+    from transformertts_torch.ops.griffin_lim import griffin_lim_kernel
     synthesize_lines(model, audio, lines, vocoder=vocoder)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(repeats):
-        flash_attention.launches = 0
+        flash_attention.launches = griffin_lim_kernel.launches = 0
         t0 = time.perf_counter()
         wavs = synthesize_lines(model, audio, lines, vocoder=vocoder)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return (wavs, statistics.median(walls), flash_attention.launches,
-            (torch.cuda.max_memory_allocated() - held) / 1e9)
+            (torch.cuda.max_memory_allocated() - held) / 1e9, griffin_lim_kernel.launches)
 
 
 def _generator_reading(vocoder, mel, iters: int) -> dict:
@@ -991,17 +1018,21 @@ def vocoder_phase(model_dir: Path) -> dict:
                        frames - VOCODER_CHECK_FRAMES))
     piece = mel[:1, start:start + VOCODER_CHECK_FRAMES]
 
-    _, gl_wall, _, gl_gb = _timed_synthesis(model, audio, full, repeats=3)
+    gl_wavs, gl_wall, _, gl_gb, gl_launches = _timed_synthesis(model, audio, full, repeats=3)
+    gl_chunks = _check_gl_launches(gl_launches, gl_wavs, audio.griffin_lim_iters,
+                                   'Griffin-Lim on the full chunk')
     log(f'Griffin-Lim on the full chunk ({len(full)} lines): {gl_wall:.4f} s (median of 3), '
-        f'{len(full) / gl_wall:.3f} sentences/s, peak {gl_gb:.3f} GB')
+        f'{len(full) / gl_wall:.3f} sentences/s, peak {gl_gb:.3f} GB, {gl_launches} kernel '
+        f'launches in {gl_chunks} chunk(s)')
     record = {'Griffin-Lim': dict(chunk_sentences_per_s=len(full) / gl_wall,
-                                  chunk_peak_gb=gl_gb)}
+                                  chunk_peak_gb=gl_gb, chunk_launches=gl_launches)}
     for name, path in paths.items():
         vocoder = load_vocoder(path, mel_channels=model.config['mel_channels'], device=DEVICE)
         hop = vocoder.hop_length
-        wavs, wall, launches, _ = _timed_synthesis(model, audio, lines, vocoder)
-        if launches == 0:
-            raise AssertionError(f'synthesize_lines with {name} never launched K1')
+        wavs, wall, launches, _, gl_launches = _timed_synthesis(model, audio, lines, vocoder)
+        if launches == 0 or gl_launches != 0:
+            raise AssertionError(f'synthesize_lines with {name}: {launches} K1 launches, '
+                                 f'{gl_launches} of Griffin-Lim\'s kernel')
         lengths = [len(w) for w in wavs]
         expected = sorted(max(1, int(t) - 1) * hop for t in totals[:len(lines)])
         if sorted(lengths) != expected:
@@ -1011,13 +1042,14 @@ def vocoder_phase(model_dir: Path) -> dict:
             if not np.isfinite(w).all() or not 0 < np.abs(w).max() <= 1.0:
                 raise AssertionError(f'a {name} wav is not finite, is silent or exceeds 1')
         audio_s = sum(lengths) / audio.sampling_rate
-        chunk_wavs, chunk_wall, chunk_launches, chunk_gb = _timed_synthesis(
+        chunk_wavs, chunk_wall, chunk_launches, chunk_gb, chunk_gl = _timed_synthesis(
             model, audio, full, vocoder, repeats=3)
         chunk_lengths = sorted(len(w) for w in chunk_wavs)
-        if chunk_launches == 0 or chunk_lengths != sorted(
+        if chunk_launches == 0 or chunk_gl != 0 or chunk_lengths != sorted(
                 max(1, int(t) - 1) * hop for t in full_totals[:len(full)]):
             raise AssertionError(f'{name} on the full chunk: K1 launches {chunk_launches}, '
-                                 f'wav lengths {chunk_lengths}')
+                                 f'Griffin-Lim kernel launches {chunk_gl}, wav lengths '
+                                 f'{chunk_lengths}')
         chunk_audio_s = sum(len(w) for w in chunk_wavs) / audio.sampling_rate
 
         small = _generator_reading(vocoder, mel, iters=10)
@@ -1372,6 +1404,112 @@ def log_mel_kernel_phase() -> dict:
         times[t] = dict(shape=[16, t], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                         **limit)
     return {'max_abs_err': worst, 'times': times, 'resources': resources[1024, 256]}
+
+
+GL_CHECKS = [(3, 70, 1024, 256, 1024, 3), (32, 384, 1024, 256, 1024, 2),
+             (2, 37, 256, 64, 256, 3), (2, 50, 2048, 512, 2048, 2), (1, 2, 1024, 256, 1024, 3)]
+GL_SHAPES = [(32, 384), (32, 768), (1, 128)]   # serving chunks: B x frames, n_fft 1024 hop 256
+GL_PER_SAMPLE = 1e-6   # of the plain version's peak (tests/test_torch_griffinlim_kernel.py)
+
+
+def _gl_library_iteration(S, n_fft, hop, win, momentum=0.99):
+    """One Griffin-Lim iteration with PyTorch's FFTs (cuFFT): irfft, window,
+    overlap-add by ``fold``, the envelope, ``unfold``, window, rfft and the
+    momentum update, the function of one kernel launch."""
+    b, f, _ = S.shape
+    fold = torch.nn.functional.fold
+    window = torch.hann_window(win, periodic=True, device=S.device)
+    window = torch.nn.functional.pad(window, ((n_fft - win) // 2, n_fft - win - (n_fft - win) // 2))
+    out_len = n_fft + hop * (f - 1)
+    env = fold((window ** 2)[None, :, None].expand(1, n_fft, f), (1, out_len), (1, n_fft),
+               stride=(1, hop)).reshape(out_len).clamp_min(1e-10)
+    m = momentum / (1 + momentum)
+    angles = torch.ones_like(S, dtype=torch.complex64)
+    prev = torch.zeros_like(angles)
+
+    def run():
+        frames = torch.fft.irfft(S * angles, n=n_fft) * window                # (B, F, N)
+        y = fold(frames.transpose(1, 2), (1, out_len), (1, n_fft),
+                 stride=(1, hop)).reshape(b, out_len) / env
+        new = torch.fft.rfft(y.unfold(-1, n_fft, hop) * window)
+        upd = new - m * prev
+        return upd / (upd.abs() + 1e-16), new
+    return run
+
+
+def griffin_lim_kernel_phase() -> dict:
+    """Griffin-Lim's FFT kernel against its plain version (run on the CPU:
+    the card is held to the CPU's float32 arithmetic, expected to the bit),
+    what it uses on the card, then timed at the serving chunks' shapes, one
+    iteration and the 32 of a call, beside its bound, the plain version on
+    the card, the float32 DFT-GEMM form it replaced and a cuFFT iteration."""
+    from transformertts_torch.audio import griffinlim
+    from transformertts_torch.ops.griffin_lim import (griffin_lim_kernel, griffin_lim_plain,
+                                                      kernel_resources, tile_frames)
+    rng = np.random.default_rng(SEED + 5)
+    worst = 0.0
+    for b, f, n_fft, hop, win, n_iter in GL_CHECKS:
+        S = np.abs(rng.standard_normal((b, f, n_fft // 2 + 1))).astype(np.float32)
+        before = griffin_lim_kernel.launches
+        wav = griffin_lim_kernel(torch.as_tensor(S, device=DEVICE), n_iter, n_fft, hop,
+                                 win).cpu()
+        ref = griffin_lim_plain(torch.from_numpy(S), n_iter, n_fft, hop, win)
+        if griffin_lim_kernel.launches != before + n_iter + 1:
+            raise AssertionError(f'Griffin-Lim kernel: {griffin_lim_kernel.launches - before} '
+                                 f'launches for {n_iter} iterations')
+        err = (wav - ref).abs().max().item() if wav.numel() else 0.0
+        peak = ref.abs().max().item() if ref.numel() else 0.0
+        if wav.shape != ref.shape or err > GL_PER_SAMPLE * peak:
+            raise AssertionError(f'Griffin-Lim kernel at {(b, f, n_fft, hop, win, n_iter)}: '
+                                 f'{tuple(wav.shape)}, max |kernel - plain| {err:.3g} of {peak:.3g}')
+        worst = max(worst, err / max(peak, 1e-30))
+        log(f'Griffin-Lim kernel B{b} x {f} frames, n_fft {n_fft} hop {hop} win {win}, {n_iter} '
+            f'iterations: max |kernel - plain| {err:.3g} (peak {peak:.3g}), bit-equal '
+            f'{torch.equal(wav, ref)}')
+    resources = {}
+    for n_fft, hop in ((1024, 256), (2048, 512), (256, 64), (2048, 2048)):
+        r = kernel_resources(n_fft, hop)
+        log(f'Griffin-Lim kernel at n_fft {n_fft} hop {hop} (tile {tile_frames(n_fft, hop)}): '
+            f'{r["registers"]} registers a thread, {r["spill_bytes"]} spill (local) bytes, '
+            f'{r["static_smem_bytes"]} + {r["dynamic_smem_bytes"]} B of shared memory a block, '
+            f'{r["blocks_per_sm"]} block(s) of {r["threads"]} threads an SM')
+        if r['spill_bytes'] != 0 or r['blocks_per_sm'] < 1:
+            raise AssertionError(f'Griffin-Lim kernel at n_fft {n_fft} hop {hop} spills or '
+                                 f'does not fit: {r}')
+        resources[n_fft, hop] = r
+    n_fft, hop, win, iters = 1024, 256, 1024, 32
+    bins = n_fft // 2 + 1
+    fft = 2.5 * n_fft * math.log2(n_fft)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    times = {}
+    for b, f in GL_SHAPES:
+        S = torch.rand(b, f, bins, device=DEVICE, generator=gen)
+        slots = b * f
+        call = _time_ms(lambda: griffin_lim_kernel(S, iters, n_fft, hop, win), iters=5)
+        final = _time_ms(lambda: griffin_lim_kernel(S, 0, n_fft, hop, win), iters=20)
+        gemm = _time_ms(lambda: griffinlim._griffin_lim_padded(S, iters, n_fft, hop, win, 0.99),
+                        iters=2)
+        plain = _time_ms(lambda: griffin_lim_plain(S, iters, n_fft, hop, win), iters=2)
+        library = _time_ms(_gl_library_iteration(S, n_fft, hop, win), iters=20)
+        # an iteration reads S, S·phase and prev and writes the last two, a
+        # complex float32 pair each (36 B a bin), and takes an inverse and a
+        # forward real FFT a frame; the call adds the first iteration (S in,
+        # two pairs out: 20 B a bin) in place of one and the final inverse
+        # (a pair in, hop samples out)
+        step = bound(slots * 2 * fft, slots * bins * 36, 'f32')
+        whole = bound(slots * fft * (2 * iters + 1),
+                      slots * (bins * (36 * (iters - 1) + 20 + 8) + 4 * hop), 'f32')
+        times[b, f] = dict(shape=[b, f, bins], ms=call, iteration_ms=(call - final) / iters,
+                           final_ms=final, gemm_ms=gemm, plain_ms=plain,
+                           library_iteration_ms=library, bound_ms=whole['bound_ms'],
+                           bound_by=whole['bound_by'], iteration_bound_ms=step['bound_ms'],
+                           iteration_bound_by=step['bound_by'])
+        log(f'Griffin-Lim B{b} x {f} frames, {iters} iterations: kernel {call:.4f} ms '
+            f'({(call - final) / iters:.4f} an iteration, final inverse {final:.4f}), bound '
+            f'{whole["bound_ms"]:.4f} ({whole["bound_by"]}; an iteration '
+            f'{step["bound_ms"]:.4f}); DFT-GEMM form {gemm:.4f} ms; plain {plain:.4f} ms; a '
+            f'cuFFT iteration {library:.4f} ms')
+    return {'max_rel_err': worst, 'times': times, 'resources': resources[1024, 256]}
 
 
 def _synthetic_corpus(work: Path, n_clips: int, seed: int = SEED):
@@ -3311,6 +3449,7 @@ def main():
                         vocoders['HiFi-GAN']['checkpoint'], card)
     train = _timed(training_phase)
     log_mel = _timed(log_mel_kernel_phase)
+    waveform = _timed(griffin_lim_kernel_phase)
     featurize = _timed(featurization_phase, card)
     aligner_kernels = _timed(aligner_kernel_phase)
     k2_f32 = aligner_kernels.pop('k2')
@@ -3416,6 +3555,23 @@ def main():
         'half_ms': small['ms'], 'half_plain_ms': small['plain_ms'],
         'half_library_ms': small['library_ms'], 'half_bound_ms': small['bound_ms'],
         **log_mel['resources'],
+    })
+    serve_chunk = waveform['times'][32, 768]
+    kernels.append({
+        'name': 'griffin_lim', 'route': 'cuda',
+        'source': 'transformertts_torch/csrc/griffin_lim.cu',
+        'replaces': 'none (the JAX package has matmuls against DFT bases, no Pallas kernel)',
+        'launches': result['gl_launches'],
+        'launches_per_chunk': result['gl_launches'] / result['gl_chunks'],
+        'max_rel_err': waveform['max_rel_err'],
+        'ms': serve_chunk['ms'], 'plain_ms': serve_chunk['plain_ms'],
+        'bound_ms': serve_chunk['bound_ms'], 'bound_by': serve_chunk['bound_by'],
+        'gemm_ms': serve_chunk['gemm_ms'],
+        'library_iteration_ms': serve_chunk['library_iteration_ms'],
+        'library': 'torch.fft irfft + fold + unfold + rfft, one iteration',
+        'shape': serve_chunk['shape'], 'iteration_ms': serve_chunk['iteration_ms'],
+        'times': {f'B{b}xF{f}': t for (b, f), t in waveform['times'].items()},
+        **waveform['resources'],
     })
     log(f'training: {train["ms_per_step"]:.2f} ms/step, {train["frames_per_s"]:.1f} trained '
         f'mel frames/s at B32 x 512 frames')

@@ -70,6 +70,21 @@ def test_griffin_lim_32_iterations_converges_like_jax(magnitudes):
         assert sc_port < 0.9 * _spectral_convergence(_jax_gl(S[row:row + 1], 0)[0], S[row])
 
 
+@pytest.mark.parametrize('n_fft, hop', [(256, 64), (2048, 512), (1024, 1024)])
+def test_plain_version_matches_jax(n_fft, hop):
+    """The FFT kernel's plain version (what a CPU tensor runs) against the JAX
+    package at the kernel's smallest and largest FFT and a hop with no
+    overlap, per sample at two iterations, at this file's bar."""
+    from transformertts_torch.ops.griffin_lim import griffin_lim_plain
+    S = np.abs(np.random.default_rng(n_fft + hop).standard_normal(
+        (2, 30, n_fft // 2 + 1))).astype(np.float32)
+    wav = griffin_lim_plain(torch.from_numpy(S), 2, n_fft, hop, n_fft).numpy()
+    ref = np.stack([np.asarray(jg.griffin_lim(jnp.asarray(s), 2, n_fft, hop, n_fft))
+                    for s in S])
+    assert wav.shape == ref.shape == (2, hop * 29)
+    np.testing.assert_allclose(wav, ref, rtol=0, atol=2e-4 * np.abs(ref).max())
+
+
 def test_griffin_lim_batch_rows_are_independent(magnitudes):
     _, S = magnitudes
     batch = tg.griffin_lim(torch.from_numpy(S), 4, N_FFT, HOP, WIN)

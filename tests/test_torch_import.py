@@ -36,6 +36,7 @@ PORT_MODULES = [
     'transformertts_torch.ops.duration_extraction',
     'transformertts_torch.ops.flash_attention',
     'transformertts_torch.ops.fused_log_mel',
+    'transformertts_torch.ops.griffin_lim',
     'transformertts_torch.parallel',
     'transformertts_torch.parallel.mesh',
     'transformertts_torch.parallel.tensor_parallel',

@@ -130,6 +130,9 @@ def test_counters_equal_the_lines_buckets_and_wavs(served, traced):
         want['frames_real'] += sum(frames)
         want['frame_slots'] += batch * frame_bucket
     assert want['chunks'] == 2 and want['rows_real'] == 7 and want['row_slots'] == 8
+    # the waveform stage counts the frame slots it is fed, and on the CPU none
+    # goes through the kernel
+    want.update(gl_frame_slots=want['frame_slots'], gl_kernel_frame_slots=0)
     assert records['counters'] == want
 
 
@@ -151,7 +154,8 @@ def test_warmup_serving_records_the_chunk_phases(served, traced):
     n = warmup_serving(model, audio, max_batch=2, token_buckets=(32,), frame_buckets=(128,),
                        n_iter=1, include_ragged_batches=False)
     records = tracing.take()
-    assert n == 1 and records['counters'] == {}
+    # no request counters; the waveform stage's, for its 2 × 128 frame slots
+    assert n == 1 and records['counters'] == {'gl_frame_slots': 256, 'gl_kernel_frame_slots': 0}
     assert [s['name'] for s in records['spans']] == ['encode', 'frame_budget', 'decode',
                                                      'waveform']
 

@@ -2,15 +2,19 @@
 ``transformertts_tpu/audio/griffinlim.py``.
 
 - ``mel_to_linear``: amplitude mel → linear magnitude by the pseudo-inverse
-  of the mel filterbank, refined by multiplicative NNLS updates.
+  of the mel filterbank, refined by multiplicative NNLS updates (float32
+  GEMMs on the tensors' device).
 - ``griffin_lim``: phase recovery by ISTFT→STFT round trips with momentum
   0.99 and zero-phase init, batched. Where the hop tiles n_fft it runs in
-  the padded signal domain: the ISTFT lays frames down with n_fft/hop
-  hop-wide strip adds and the STFT re-frames with slices, so no gather
-  appears in the loop. Other hops take the gather form, a centered
-  ``spectral.istft``/``spectral.stft`` round trip each iteration.
-
-All products are float32 GEMMs on the tensors' device.
+  the padded signal domain (the ISTFT lays frames down at hop offsets and
+  the STFT re-frames the same signal, no gather); other hops take the gather
+  form, a centered ``spectral.istft``/``spectral.stft`` round trip each
+  iteration. ``waveform_form`` picks the implementation from what it can
+  see: at n_fft 256–2048 (powers of two) with a hop that tiles it, a CUDA
+  tensor runs the hand-written FFT kernel (``ops/griffin_lim.py``, one
+  launch an iteration) and a CPU tensor its plain version; another n_fft
+  with a tiling hop runs the padded form as float32 DFT GEMMs
+  (``_griffin_lim_padded``).
 """
 from functools import lru_cache
 
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from transformertts_torch.audio import spectral
+from transformertts_torch.utils import tracing
 
 
 @lru_cache(maxsize=8)
@@ -59,12 +64,43 @@ def _wsq_envelope(n_fft: int, hop_length: int, win_length: int,
     return np.maximum(wsq, 1e-10).astype(np.float32)
 
 
+def waveform_form(device_type: str, n_fft: int, hop_length: int) -> str:
+    """Which implementation ``griffin_lim`` runs: 'gather' for a hop that
+    does not tile n_fft; 'kernel' (a CUDA tensor) or 'plain' (a CPU tensor)
+    at the kernel's n_fft; 'padded' (DFT GEMMs) otherwise."""
+    from transformertts_torch.ops.griffin_lim import KERNEL_N_FFT
+    if n_fft % hop_length != 0:
+        return 'gather'
+    if n_fft not in KERNEL_N_FFT:
+        return 'padded'
+    return 'kernel' if device_type == 'cuda' else 'plain'
+
+
 def griffin_lim(S: torch.Tensor, n_iter: int, n_fft: int, hop_length: int,
                 win_length: int, momentum: float = 0.99) -> torch.Tensor:
-    """Magnitude STFT S (B, n_frames, n_bins) → waveforms (B, hop·(n_frames−1))."""
+    """Magnitude STFT S (B, n_frames, n_bins) → waveforms (B, hop·(n_frames−1)).
+    With tracing on, counts the frame slots (B·n_frames) in ``gl_frame_slots``
+    and those the kernel took in ``gl_kernel_frame_slots``."""
     S = S.float()
-    if n_fft % hop_length != 0:
+    form = waveform_form(S.device.type, n_fft, hop_length)
+    if tracing.enabled():
+        slots = S.shape[0] * S.shape[1]
+        tracing.count('gl_frame_slots', slots)
+        tracing.count('gl_kernel_frame_slots', slots if form == 'kernel' else 0)
+    if form == 'gather':
         return _griffin_lim_general(S, n_iter, n_fft, hop_length, win_length, momentum)
+    if form == 'padded':
+        return _griffin_lim_padded(S, n_iter, n_fft, hop_length, win_length, momentum)
+    from transformertts_torch.ops.griffin_lim import griffin_lim_kernel, griffin_lim_plain
+    run = griffin_lim_kernel if form == 'kernel' else griffin_lim_plain
+    return run(S, n_iter, n_fft, hop_length, win_length, momentum)
+
+
+def _griffin_lim_padded(S: torch.Tensor, n_iter: int, n_fft: int, hop_length: int,
+                        win_length: int, momentum: float) -> torch.Tensor:
+    """The padded signal domain as float32 GEMMs against the DFT bases: the
+    ISTFT lays frames down with n_fft/hop hop-wide strip adds, the STFT
+    re-frames with slices."""
     b, n_frames, _ = S.shape
     k_strips = n_fft // hop_length
     span = n_frames * hop_length

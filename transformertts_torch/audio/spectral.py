@@ -6,7 +6,9 @@ into GEMMs, ``frame_signal``, ``stft``, ``stft_magnitude`` and
 ``mel_spectrogram`` over batched torch tensors (reflect centering or a
 pre-padded signal) and ``istft`` (squared-window-normalized overlap-add), as
 librosa computes them. Float32 GEMMs, with ``1e-30`` inside the magnitude's
-square root as in the JAX package."""
+square root as in the JAX package. Griffin-Lim uses ``stft``/``istft`` only
+in its gather form (hops that do not tile n_fft) and the DFT bases only at
+an n_fft its FFT kernel does not take (``audio/griffinlim.py``)."""
 from functools import lru_cache
 from typing import Tuple
 

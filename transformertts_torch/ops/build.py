@@ -19,6 +19,9 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / 'torch_kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
+# sources whose kernels round every product and sum on its own, as their
+# plain versions do: no fused multiply-add
+SOURCE_FLAGS = {'griffin_lim': ('-fmad=false',)}
 
 # what a kernel uses on the card, as its library's resource entries report it
 RESOURCES = ('registers', 'spill_bytes', 'static_smem_bytes', 'dynamic_smem_bytes',
@@ -40,11 +43,15 @@ def nvcc_path() -> str:
                        'CUDA toolkit (PATH, CUDA_HOME or /usr/local/cuda)')
 
 
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     # the shared headers are part of every source's digest
     sources = [CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))]
     digest = hashlib.sha256(b''.join(f.read_bytes() for f in sources)
-                            + ' '.join(NVCC_FLAGS).encode())
+                            + ' '.join(nvcc_flags(name)).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
@@ -60,7 +67,7 @@ def build(name: str) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, '-o', tmp, str(CSRC / f'{name}.cu')],
+            [nvcc_path(), *nvcc_flags(name), '-o', tmp, str(CSRC / f'{name}.cu')],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed on {name}.cu:\n{proc.stderr}')

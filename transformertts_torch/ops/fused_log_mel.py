@@ -61,6 +61,14 @@ def fft_passes(m: int) -> List[Tuple[int, int]]:
     return passes
 
 
+def fft_twiddles(m: int) -> np.ndarray:
+    """complex128 pass twiddles of an m-point FFT, (m − 1,): pass (R, Ns)'s
+    entry Ns − 1 + k·(R − 1) + r − 1 is exp(−2πi k r / (Ns R)), k < Ns, 0 < r < R."""
+    return np.concatenate(
+        [np.exp(-2j * np.pi * np.outer(np.arange(ns), np.arange(1, r)) / (ns * r)).ravel()
+         for r, ns in fft_passes(m)])
+
+
 class KernelLayout(NamedTuple):
     window: torch.Tensor          # (n_fft,) float32 padded Hann window
     fft_twiddles: torch.Tensor    # (n_fft//2 − 1, 2): pass (R, Ns)'s exp(−2πi k r / (Ns R))
@@ -90,10 +98,7 @@ def kernel_layout(device: str, sampling_rate: int, n_fft: int, win_length: int,
             bands[m] = idx[0], idx[-1] + 1
     used = np.flatnonzero(nonzero.any(axis=0))
     k_lo, k_hi = (int(used[0]), int(used[-1]) + 1) if used.size else (0, 0)
-    # pass (R, Ns): entry k·(R − 1) + r − 1 is exp(−2πi k r / (Ns R)), k < Ns, 0 < r < R
-    fft_tw = np.concatenate(
-        [np.exp(-2j * np.pi * np.outer(np.arange(ns), np.arange(1, r)) / (ns * r)).ravel()
-         for r, ns in fft_passes(n_fft // 2)])
+    fft_tw = fft_twiddles(n_fft // 2)
     split_tw = np.exp(-2j * np.pi * np.arange(k_lo, k_hi) / n_fft)
     window = spectral.padded_window(n_fft, win_length).astype(np.float32)
     return KernelLayout(*(torch.as_tensor(a, device=device) for a in (

@@ -5,8 +5,11 @@ against the JAX package, and the result line.
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``: its ``config``
 names ``configs/<config>.yaml`` and its ``traffic`` names
 ``traffic/<traffic>.json``; the configuration's ``kind`` names the driver module
-(``serve`` or ``train``) that runs it.
+(``<kind>.py``) that runs it, which names the traffic kind it generates
+(``TRAFFIC_KIND``). A serving configuration's ``model_family`` names its
+family module (``families/<model_family>.py``).
 """
+import importlib
 import json
 import math
 import os
@@ -22,10 +25,6 @@ ROOT = BENCH_DIR.parent
 # top-level module names that no process of the benchmark may hold
 FORBIDDEN_MODULES = ('jax', 'jaxlib', 'flax', 'transformertts_tpu', 'bench', 'chip_smoke',
                      'scripts')
-
-
-# the traffic kind each driver (a configuration's ``kind``) generates
-DRIVER_TRAFFIC = {'serve': 'paragraphs', 'train': 'aligner_batches'}
 
 
 class BenchmarkError(RuntimeError):
@@ -45,8 +44,8 @@ def process_start_time() -> float:
 
 def load_cell(name: str, root: Path = ROOT) -> dict:
     """The cell ``name`` of ``BENCHMARK.json`` with its configuration and
-    traffic read from their files; the traffic's ``kind`` must be the one
-    its configuration's driver generates."""
+    traffic read from their files; the traffic's ``kind`` must be the
+    ``TRAFFIC_KIND`` of its configuration's driver module."""
     bench = json.loads((root / 'BENCHMARK.json').read_text())
     cells = {w['name']: w for w in bench['workloads']}
     if name not in cells:
@@ -58,11 +57,16 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
     cell['traffic_data'] = json.loads((BENCH_DIR / 'traffic' / f"{cell['traffic']}.json")
                                       .read_text())
     cell['benchmark'] = bench
-    want = DRIVER_TRAFFIC[cell['config_data']['kind']]
+    want = importlib.import_module(f"h100bench.{cell['config_data']['kind']}").TRAFFIC_KIND
     if cell['traffic_data']['kind'] != want:
         raise BenchmarkError(f"cell {name}: a {cell['config_data']['kind']} configuration "
                              f"takes {want} traffic, not {cell['traffic_data']['kind']}")
     return cell
+
+
+def family_of(cfg: dict):
+    """The model family module of a serving configuration."""
+    return importlib.import_module(f"h100bench.families.{cfg['model_family']}")
 
 
 def require_devices(n: int):

@@ -3,15 +3,18 @@
 A reader is ``read(ctx) -> float | None``; ``ctx`` holds the cell, the
 traced windows' readings (``trace.device_window`` as ``ctx['a']``,
 ``trace.stack_window`` as ``ctx['b']``) and what the driver knew of the work
-in each window (``ctx['a_work']``, ``ctx['b_work']``). ``None`` means
-nothing to read, and the harness leaves the metric out.
+in each window (``ctx['a_work']``, ``ctx['b_work']``). A serving cell's
+``ctx`` also holds the program's spans and counters of window A
+(``ctx['spans']``, ``ctx['counters']``: ``transformertts_torch.utils.tracing``),
+read by ``spans.py``. ``None`` means nothing to read, and the harness leaves
+the metric out.
 """
 import importlib.util
 
 import numpy as np
 
 from h100bench import roofline
-from h100bench.common import BENCH_DIR
+from h100bench.common import BENCH_DIR, family_of
 
 
 def load_reader(name: str):
@@ -31,55 +34,18 @@ def kernel_seconds(ctx, parts) -> float:
     return sum(s for name, s in ctx['a']['kernels'] if any(p in name for p in parts))
 
 
-def row_lengths(tokens, dur):
-    """Each row's real tokens and the frames its rounded durations give."""
-    n_tok = (tokens != 0).sum(dim=1).cpu().numpy().astype(np.int64)
-    frames = np.maximum(np.round(dur[:, :, 0].float().cpu().numpy()), 0).sum(axis=1)
-    return n_tok, frames.astype(np.int64)
-
-
-def chunk_rows(work) -> list:
-    """Each real row of the serving chunks of a window: (tokens, frames)."""
-    rows = []
-    for request in work:
-        for tokens, dur, _ in request['chunks']:
-            rows.extend((int(n), int(t)) for n, t in zip(*row_lengths(tokens, dur)) if n > 0)
-    return rows
-
-
 def serve_flop_seconds(ctx) -> float:
-    """The least device seconds of the serving window's work: the model at
-    the bfloat16 peak, the waveform stage at the float32 one."""
-    cfg = ctx['cell']['config_data']
-    m = cfg['model']
-    total = 0.0
-    for n, t in chunk_rows(ctx['a_work']):
-        total += roofline.forward_tts_flops(m, n, t) / roofline.PEAK_FLOPS['bf16']
-        wave = (roofline.hifigan_flops(cfg['vocoder'], t, m['mel_channels'])
-                if cfg.get('vocoder') else
-                roofline.griffin_lim_flops(cfg['audio'], t, m['mel_channels']))
-        total += wave / roofline.PEAK_FLOPS['f32']
-    return total
+    """The least device seconds of the serving window's work, as the
+    configuration's model family counts it (its ``flop_seconds``)."""
+    return family_of(ctx['cell']['config_data']).flop_seconds(ctx)
 
 
-def serve_attention_bound_s(ctx) -> float:
-    """Σ K1 bound over the serving window's launches: per chunk one launch
-    a block of each stack, over the chunk's padded tensors, with the real
-    (query, key) pairs of each row."""
-    m = ctx['cell']['config_data']['model']
-    total = 0.0
-    for request in ctx['a_work']:
-        for tokens, dur, out_shape in request['chunks']:
-            b, n_bucket = tokens.shape
-            n_tok, frames = row_lengths(tokens, dur)
-            for heads, tq, kept_rows, dim in (
-                    (m['encoder_num_heads'], n_bucket, n_tok, m['encoder_model_dimension']),
-                    (m['decoder_num_heads'], out_shape[1], frames, m['decoder_model_dimension'])):
-                for h in heads:
-                    kept = int(h * (kept_rows ** 2).sum())
-                    total += roofline.attention_bound_s('K1', b, h, tq, tq, dim // h, kept, 2,
-                                                        'bf16')
-    return total
+def serve_attention_bound_s(ctx):
+    """Σ K1 bound over the serving window's launches, as the configuration's
+    model family counts it (its ``attention_bound_s``), or None for a family
+    that launches no K1."""
+    bound = family_of(ctx['cell']['config_data']).attention_bound_s
+    return None if bound is None else bound(ctx)
 
 
 def aligner_forward_flops(m: dict, n_tok: int, frames: int, r: int) -> float:

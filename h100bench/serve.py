@@ -1,21 +1,18 @@
-"""A serving cell: one closed-loop caller sends paragraphs to
-``transformertts_torch.models.synthesis.synthesize_lines``.
+"""A serving cell: one closed-loop caller sends paragraphs to the program.
 
-Set-up builds the configuration's ForwardTransformer (and vocoder) on the
-card with weights drawn from the seed (those that set each token's frames,
-the configuration's ``fixed_stream_weights``, from one stream for every
-seed, so that a seed changes what is said and in what order, not how much
-work a window holds), then runs a few requests of a
-separate warm-up stream, among them one of the mix's largest size. The
-window sends the measured stream's requests back to back until
-``--seconds`` have passed and the last one has returned; a request's
-latency runs from its call to its waves on the host. Forward hooks on three
-of the model's modules (its token embedding, its duration head and its mel
-projection) record what each chunk was fed and produced, without a device
-sync; the records of a seed-drawn sample of the finished requests, and of
-the longest, are kept for the check (``check_serve``), which runs after the
-window, once the program's state is freed. The program runs with the
-settings it makes itself: the harness sets no precision.
+What depends on the model comes from the configuration's model family
+(``families/<model_family>.py``): building the program with weights drawn
+from the seed, the serve call, the hooks that record each chunk, the
+checked records, the check and the work counts. Set-up builds the program,
+then runs a few requests of a separate warm-up stream, among them one of
+the mix's largest size. The window sends the measured stream's requests
+back to back until ``--seconds`` have passed and the last one has returned;
+a request's latency runs from its call to its waves on the host. The
+family's hooks record what each chunk was fed and produced, without a
+device sync; the records of a seed-drawn sample of the finished requests,
+and of the longest, are kept for the check, which runs after the window,
+once the program's state is freed. The program runs with the settings it
+makes itself: the harness sets no precision.
 """
 import gc
 import sys
@@ -26,126 +23,31 @@ import numpy as np
 import torch
 
 from h100bench import check_serve
-from h100bench.common import keras_limits, seed_streams, uniform_weights
-from h100bench.reference.numerics import exact_float32
+from h100bench.common import family_of, seed_streams
 from h100bench.traffic import paragraphs
 
-MEL_SILENCE = check_serve.LOG_MEL_SILENCE
-
-
-def build(cfg: dict, mix: dict, seed: int, device='cuda'):
-    """(model, vocoder or None, audio, weights, vocoder weights) with weights
-    from ``seed``."""
-    from transformertts_torch.audio import Audio
-    from transformertts_torch.models.forward_tts import ForwardTransformer
-    model = ForwardTransformer(**cfg['model']).to(device)
-    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    limits, constants = keras_limits(shapes, embeddings=('encoder_prenet.weight',))
-    weights = uniform_weights(shapes, limits, constants, seed, device,
-                              shared=cfg.get('fixed_stream_weights', ()))
-    calibrate_durations(weights, cfg, mix)
-    model.load_state_dict(weights)
-    model.eval()
-    vocoder, vweights = None, None
-    if cfg.get('vocoder'):
-        from transformertts_torch.models.hifigan import HiFiGANVocoder
-        vcfg = {k: v for k, v in cfg['vocoder'].items() if k not in ('family', 'gain')}
-        vocoder = HiFiGANVocoder(cfg['model']['mel_channels'], vcfg).to(device)
-        shapes = {k: tuple(v.shape) for k, v in vocoder.state_dict().items()}
-        gain = cfg['vocoder']['gain']
-        # a ConvTranspose1d weight is (in, out, k), a Conv1d one (out, in, k)
-        vlimits = {k: gain / np.sqrt((s[0] if k.startswith('ups.') else s[1]) * s[2])
-                   for k, s in shapes.items() if k.endswith('.weight')}
-        vconst = {k: 0.0 for k in shapes if k.endswith('.bias')}
-        vweights = uniform_weights(shapes, vlimits, vconst, seed + 1, device)
-        vocoder.load_state_dict(vweights)
-        vocoder.eval()
-    return model, vocoder, Audio.from_config(cfg['audio']), weights, vweights
-
-
-CALIBRATION_SENTENCES = 48
-
-
-def calibrate_durations(weights: dict, cfg: dict, mix: dict):
-    """Rescale the duration head (its weight, then its bias) so that the
-    reference's durations over a fixed sample of the traffic's sentences
-    (the same for every seed) have the configuration's mean and standard
-    deviation: a trained model's frames a phoneme. Random weights alone give
-    an arbitrary speaking rate and spread of lengths."""
-    from h100bench.reference import forward_tts, frontend
-    lexicon = frontend.read_lexicon()
-    stream = paragraphs(mix, 0, stream=9)
-    sentences = []
-    while len(sentences) < CALIBRATION_SENTENCES:
-        sentences.extend(next(stream))
-    ref = forward_tts.ReferenceForward(weights, cfg['model'])
-    filters = cfg['model']['duration_conv_filters']
-
-    def pre_activations():
-        out = []
-        for sentence in sentences[:CALIBRATION_SENTENCES]:
-            tokens = frontend.tokens(sentence, lexicon)
-            x = ref.encode(tokens, len(tokens))['features']
-            out.append(ref.predictor('dur_pred', x, filters, None,
-                                     torch.ones(len(tokens), 1, device=x.device)))
-        return torch.cat(out)
-
-    with torch.no_grad(), exact_float32():
-        weights['dur_pred.linear.weight'] *= (cfg['assumed']['duration_sd']
-                                              / float(pre_activations().std()))
-        weights['dur_pred.linear.bias'] += (cfg['assumed']['mean_duration']
-                                            - float(pre_activations().mean()))
-
-
-class Capture:
-    """Forward hooks that record, for every chunk of the current request,
-    the tokens fed to the embedding, the duration head's output and the mel
-    projection's output, as device tensors (no sync)."""
-
-    def __init__(self, model):
-        self.chunks = []
-        self.handles = [
-            model.encoder_prenet.register_forward_hook(
-                lambda m, args, out: self.chunks.append({'tokens': args[0]})),
-            model.dur_pred.register_forward_hook(
-                lambda m, args, out: self.chunks[-1].__setitem__('dur', out)),
-            model.out.register_forward_hook(
-                lambda m, args, out: self.chunks[-1].__setitem__('out', out)),
-        ]
-
-    def take(self) -> list:
-        chunks, self.chunks = self.chunks, []
-        return chunks
-
-    def close(self):
-        for h in self.handles:
-            h.remove()
+TRAFFIC_KIND = 'paragraphs'
 
 
 class StageClock:
     """CUDA events at the waveform stage's entry and return in every chunk
-    (Griffin-Lim's ``audio.mels_to_waveforms``, or the vocoder's forward),
+    (the family's ``stage``: ``owner.attribute``, wrapped on the instance),
     recorded without a sync. A pair spans the stage on the card: from the
-    decoder's end, or the host's arrival if that is later, to the stage's
+    work before it, or the host's arrival if that is later, to the stage's
     last kernel's end. Installed for the traced window A alone."""
 
-    def __init__(self, audio, vocoder):
+    def __init__(self, owner, attribute: str):
         self.events = []
-        if vocoder is not None:
-            self.handles = [vocoder.register_forward_pre_hook(lambda m, a: self._mark()),
-                            vocoder.register_forward_hook(lambda m, a, o: self._mark())]
-            self.undo = lambda: [h.remove() for h in self.handles]
-        else:
-            real = audio.mels_to_waveforms
+        real = getattr(owner, attribute)
 
-            def timed(*args, **kwargs):
-                self._mark()
-                out = real(*args, **kwargs)
-                self._mark()
-                return out
+        def timed(*args, **kwargs):
+            self._mark()
+            out = real(*args, **kwargs)
+            self._mark()
+            return out
 
-            audio.mels_to_waveforms = timed
-            self.undo = lambda: delattr(audio, 'mels_to_waveforms')
+        setattr(owner, attribute, timed)
+        self.undo = lambda: delattr(owner, attribute)
 
     def _mark(self):
         event = torch.cuda.Event(enable_timing=True)
@@ -157,50 +59,6 @@ class StageClock:
         self.undo()
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in zip(self.events[0::2], self.events[1::2])) / 1e3
-
-
-def chunk_rows(chunks) -> list:
-    """The real rows of a request's chunks on the host: each row's tokens,
-    durations as the model rounded them, and the mel its waveform stage was
-    fed (the chunk's frame budget, padding frames at silence)."""
-    rows = []
-    for c in chunks:
-        tok = c['tokens'].cpu().numpy()
-        dur = np.round(c['dur'][:, :, 0].float().cpu().numpy()).astype(np.int64)
-        out = c['out'].float().cpu().numpy()
-        for r in range(tok.shape[0]):
-            n_tok = int((tok[r] != 0).sum())
-            if n_tok == 0:
-                continue
-            n = np.maximum(dur[r, :n_tok], 0)
-            total = int(n.sum())
-            mel = np.full(out.shape[1:], MEL_SILENCE, np.float32)
-            mel[:total] = out[r, :total]
-            rows.append({'tokens': tok[r, :n_tok].tolist(), 'n_pad': tok.shape[1],
-                         'durations': n, 'mel': mel})
-    return rows
-
-
-def match(sentences, wavs, rows, lexicon) -> list:
-    """Pair each sentence with the row whose tokens equal the reference
-    frontend's; a sentence with none takes the first unused row, or an
-    empty one, so a wrong token shows as a mismatch, never as a skip."""
-    from h100bench.reference import frontend
-    records, used = [], set()
-    for sentence, wav in zip(sentences, wavs):
-        want = frontend.tokens(sentence, lexicon)
-        pick = next((i for i, r in enumerate(rows) if i not in used and r['tokens'] == want),
-                    None)
-        if pick is None:
-            pick = next((i for i in range(len(rows)) if i not in used), None)
-        if pick is None:
-            rec = {'tokens': [], 'n_pad': 0, 'durations': np.zeros(0, np.int64), 'mel': None}
-        else:
-            used.add(pick)
-            rec = dict(rows[pick])
-        rec.update(sentence=sentence, wav=np.asarray(wav))
-        records.append(rec)
-    return records
 
 
 class Sample:
@@ -235,14 +93,13 @@ class Sample:
         return out
 
 
-def run_window(model, vocoder, audio, mix, requests, seconds, capture, sample,
-               log_shapes=None) -> dict:
+def run_window(family, built, mix, requests, seconds, capture, sample, log_work=None) -> dict:
     """Requests back to back until ``seconds`` have passed. Returns the
     window's readings; keeps the sampled requests' chunks. With
-    ``log_shapes`` (a list) each request's chunk shapes and small tensors
-    (tokens, durations) are appended to it, for the traced readings."""
-    from transformertts_torch.models.synthesis import synthesize_lines
-    sr = audio.sampling_rate
+    ``log_work`` (a list) each request's audio seconds and the family's
+    ``chunk_work`` of each chunk are appended to it, for the traced
+    readings."""
+    sr = built['sampling_rate']
     latencies, audio_s, attempted, failed = [], 0.0, 0, 0
     start = time.perf_counter()
     while time.perf_counter() - start < seconds:
@@ -250,8 +107,7 @@ def run_window(model, vocoder, audio, mix, requests, seconds, capture, sample,
         attempted += 1
         t0 = time.perf_counter()
         try:
-            wavs = synthesize_lines(model, audio, sentences, speed_regulator=mix['speed'],
-                                    max_batch=mix['max_batch'], vocoder=vocoder)
+            wavs = family.serve(built, sentences, mix)
         except Exception:
             failed += 1
             latencies.append(time.perf_counter() - t0)
@@ -262,20 +118,18 @@ def run_window(model, vocoder, audio, mix, requests, seconds, capture, sample,
         latencies.append(time.perf_counter() - t0)
         audio_s += sum(len(w) for w in wavs) / sr
         chunks = capture.take()
-        if log_shapes is not None:
-            log_shapes.append({'audio_s': sum(len(w) for w in wavs) / sr,
-                               'chunks': [(c['tokens'], c['dur'], tuple(c['out'].shape))
-                                          for c in chunks]})
+        if log_work is not None:
+            log_work.append({'audio_s': sum(len(w) for w in wavs) / sr,
+                             'chunks': [family.chunk_work(c) for c in chunks]})
         sample.offer({'sentences': sentences, 'wavs': wavs, 'chunks': chunks})
     window_s = time.perf_counter() - start
     return {'latencies': latencies, 'audio_s': audio_s, 'attempted': attempted,
             'failed': failed, 'window_s': window_s}
 
 
-def warm_up(model, vocoder, audio, mix, seed, capture):
+def warm_up(family, built, mix, seed, capture):
     """The first ``warmup_requests`` of warm-up stream 1, then its first
     request of the mix's largest size, each waited for."""
-    from transformertts_torch.models.synthesis import synthesize_lines
     stream = paragraphs(mix, seed, stream=1)
     biggest = mix['sentences']['max']
     done_big = False
@@ -285,13 +139,35 @@ def warm_up(model, vocoder, audio, mix, seed, capture):
             if len(sentences) != biggest:
                 continue
             done_big = True
-        synthesize_lines(model, audio, sentences, speed_regulator=mix['speed'],
-                         max_batch=mix['max_batch'], vocoder=vocoder)
+        family.serve(built, sentences, mix)
         capture.take()
         if done_big:
             break
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+
+
+def window_a(family, built, mix, requests, seconds, capture, sample, work,
+             program_trace: bool):
+    """The device-traced window A (``trace.device_window``) with the
+    family's waveform stage timed by ``StageClock``, and with
+    ``program_trace`` the program's spans and counters recorded
+    (``transformertts_torch.utils.tracing``). Returns (the window's
+    readings, the traced readings, {'spans', 'counters'})."""
+    from transformertts_torch.utils import tracing
+
+    from h100bench import trace
+    clock = StageClock(*family.stage(built))
+    tracing.take()
+    if program_trace:
+        tracing.enable()
+    try:
+        w, a = trace.device_window(lambda: run_window(
+            family, built, mix, requests, seconds, capture, sample, work))
+    finally:
+        tracing.disable()
+    a['wave_stage_s'] = clock.close()
+    return w, a, tracing.take()
 
 
 def free_program():
@@ -301,15 +177,11 @@ def free_program():
         torch.cuda.empty_cache()
 
 
-def sampled_records(sample) -> list:
-    """The sampled requests' chunks copied to the host and matched to
-    their sentences."""
-    from h100bench.reference import frontend
-    lexicon = frontend.read_lexicon()
+def sampled_records(family, sample) -> list:
+    """The sampled requests' records, on the host."""
     records = []
     for item in sample.items():
-        rows = chunk_rows(item['chunks'])
-        records.extend(match(item['sentences'], item['wavs'], rows, lexicon))
+        records.extend(family.records(item['sentences'], item['wavs'], item['chunks']))
         item['chunks'] = None
     return records
 
@@ -327,43 +199,58 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, t_start: float
     cfg, mix = cell['config_data'], cell['traffic_data']
     require_devices(cell['chips'])
     log_phase(t_start, 'imports')
-    model, vocoder, audio, weights, vweights = build(cfg, mix, seed, device)
+    family = family_of(cfg)
+    built = family.build(cfg, mix, seed, device)
     log_phase(t_start, 'model and weights on the device')
-    capture = Capture(model)
-    warm_up(model, vocoder, audio, mix, seed, capture)
+    capture = family.Capture(built)
+    warm_up(family, built, mix, seed, capture)
     log_phase(t_start, 'warm-up requests (kernels built or loaded)')
     setup_s = time.time() - t_start
     requests = paragraphs(mix, seed, stream=0)
     sample = Sample(mix['check_requests'], seed_streams(seed, 3))
     readings, extra = {}, {}
     if not traced:
-        w = run_window(model, vocoder, audio, mix, requests, seconds, capture, sample)
+        w = run_window(family, built, mix, requests, seconds, capture, sample)
         readings = {'setup_s': setup_s,
                     'audio_rate': w['audio_s'] / w['window_s'],
                     'request_p95_ms': 1e3 * float(np.quantile(w['latencies'], 0.95))}
         counts = (w['attempted'], w['failed'])
     else:
         a_work, b_work = [], []
-        clock = StageClock(audio, vocoder)
-        w, a = trace.device_window(lambda: run_window(
-            model, vocoder, audio, mix, requests, min(seconds, TRACE_A_SECONDS), capture,
-            sample, a_work))
-        a['wave_stage_s'] = clock.close()
+        w, a, program = window_a(family, built, mix, requests, min(seconds, TRACE_A_SECONDS),
+                                 capture, sample, a_work, program_trace=True)
         wb, b = trace.stack_window(lambda: run_window(
-            model, vocoder, audio, mix, requests, TRACE_B_SECONDS, capture, sample, b_work))
-        extra = {'ctx': {'cell': cell, 'a': a, 'b': b, 'a_work': a_work, 'b_work': b_work}}
+            family, built, mix, requests, TRACE_B_SECONDS, capture, sample, b_work))
+        extra = {'ctx': {'cell': cell, 'a': a, 'b': b, 'a_work': a_work, 'b_work': b_work,
+                         'spans': program['spans'], 'counters': program['counters']}}
         counts = (w['attempted'] + wb['attempted'], w['failed'] + wb['failed'])
     info = device_info(cell['chips'])
     capture.close()
-    records = sampled_records(sample)
-    del model, vocoder, capture, sample, requests
+    records = sampled_records(family, sample)
+    weights = built['weights']
+    del built, capture, sample, requests
     free_program()
-    return readings, counts, info, records, (weights, vweights), extra
+    return readings, counts, info, records, weights, extra
 
 
 def judge_cell(cell: dict, records, weights) -> tuple:
     cfg = cell['config_data']
-    numbers = check_serve.judge(records, cfg, weights[0], weights[1],
-                                weights[0]['out.weight'].device)
+    numbers = family_of(cfg).judge(records, cfg, weights)
     print(f'check detail: {numbers}', file=sys.stderr)
     return check_serve.checks(numbers, cfg['limits'])
+
+
+def control_readings(cell, seed, seconds, program_only=False) -> dict:
+    """``control.py``'s readings of a serving cell on one seed: the
+    program's compared numbers and the audio rate of a short window, and
+    (unless ``program_only``) the numbers of the family's control over the
+    sentences the program's check sampled."""
+    cfg = cell['config_data']
+    family = family_of(cfg)
+    readings, _, _, records, weights, _ = run_cell(cell, seed, seconds, False, time.time())
+    program = family.judge(records, cfg, weights)
+    program['audio_rate'] = readings['audio_rate']
+    if program_only:
+        return {'program': program}
+    low = family.control_records([r['sentence'] for r in records], cfg, weights)
+    return {'program': program, 'control': family.judge(low, cfg, weights)}

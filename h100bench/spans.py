@@ -6,21 +6,19 @@ the card (not part of a run).
         [--order off,on,on,off]
 
 For each entry of ``--order``, in one process after one set-up: window A as
-a traced run makes it (``serve.run_window`` under a CUDA-only profiler, the
-``serve.StageClock`` installed, the same request stream from the seed every
-time), with the program's tracing on or off. One JSON line a window on
-standard output: the requests, window A's audio rate and idle share, and
-with tracing on the spans a request, the four readings below and the idle
-seconds by the host's innermost open span. The runs do not judge
+a traced run makes it (``serve.window_a``: the same request stream from the
+seed every time), with the program's tracing on or off. One JSON line a
+window on standard output: the requests, window A's audio rate and idle
+share, and with tracing on the spans a request, the four readings below and
+the idle seconds by the host's innermost open span. The runs do not judge
 ``correct``.
 
-The readings take a ``ctx`` laid out as the harness's readers' would be
-(``readers.py``), with what window A would add: ``ctx['spans']`` and
-``ctx['counters']`` (``tracing.take()`` after window A), and under
-``ctx['a']`` ``device_events`` [(ts µs, dur µs, correlation)],
-``launch_events`` [(ts µs, correlation)] and ``base_ns`` (the exported
-trace's ``baseTimeNanoseconds``: epoch ns = ts · 1e3 + base). Each returns
-None where its records are missing.
+The readings take the traced run's ``ctx`` (``readers.py``):
+``ctx['spans']`` and ``ctx['counters']`` (``tracing.take()`` after window
+A), and under ``ctx['a']`` ``device_events`` [(ts µs, dur µs,
+correlation)], ``launch_events`` [(ts µs, correlation)] and ``base_ns``
+(``trace.device_window``). Each returns None where its records are
+missing.
 
 - ``frontend_ms_per_audio_s``: host ms inside ``frontend`` spans per audio
   second returned;
@@ -35,13 +33,10 @@ None where its records are missing.
 import argparse
 import bisect
 import json
-import os
 import sys
-import tempfile
-import time
 from collections import defaultdict
 
-from h100bench.trace import DEVICE_CATS, LAUNCH_CATS, union_seconds
+from h100bench.trace import union_seconds
 
 LAUNCHING = ('encode', 'decode', 'waveform')
 
@@ -162,61 +157,26 @@ READINGS = {'frontend_ms_per_audio_s.serve': frontend_ms_per_audio_s,
             'launch_idle_share.serve': launch_idle_share}
 
 
-def profile_window(fn):
-    """``trace.device_window`` with the same profiler settings (CUDA
-    activity only), also keeping each device event's and launch event's
-    time and correlation id and the trace's ``baseTimeNanoseconds``."""
-    import torch
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, 'trace.json')
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            window_s = time.perf_counter() - t0
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    events = [e for e in trace['traceEvents'] if e.get('ph') == 'X']
-    dev = [e for e in events if e.get('cat') in DEVICE_CATS]
-    busy_us = union_seconds((e['ts'], e['ts'] + e['dur']) for e in dev)
-    return out, {'busy_s': busy_us * 1e-6, 'window_s': window_s,
-                 'base_ns': trace.get('baseTimeNanoseconds', 0),
-                 'device_events': [(e['ts'], e['dur'], e.get('args', {}).get('correlation'))
-                                   for e in dev],
-                 'launch_events': [(e['ts'], e['args']['correlation']) for e in events
-                                   if e.get('cat') in LAUNCH_CATS
-                                   and 'correlation' in e.get('args', {})]}
-
-
 def measure(cell, seed: int, seconds: float, order) -> list:
     """Set-up once, then one window A an entry of ``order`` ('on' or 'off':
     the program's tracing), each on the seed's measured request stream."""
     import numpy as np
-    from transformertts_torch.utils import tracing
 
     from h100bench import serve
-    from h100bench.common import seed_streams
+    from h100bench.common import family_of, seed_streams
     from h100bench.traffic import paragraphs
     cfg, mix = cell['config_data'], cell['traffic_data']
-    model, vocoder, audio, _, _ = serve.build(cfg, mix, seed)
-    capture = serve.Capture(model)
-    serve.warm_up(model, vocoder, audio, mix, seed, capture)
+    family = family_of(cfg)
+    built = family.build(cfg, mix, seed)
+    capture = family.Capture(built)
+    serve.warm_up(family, built, mix, seed, capture)
     out = []
     for i, mode in enumerate(order):
         a_work = []
         sample = serve.Sample(mix['check_requests'], seed_streams(seed, 3))
         requests = paragraphs(mix, seed, stream=0)
-        clock = serve.StageClock(audio, vocoder)
-        if mode == 'on':
-            tracing.enable()
-        try:
-            w, a = profile_window(lambda: serve.run_window(
-                model, vocoder, audio, mix, requests, seconds, capture, sample, a_work))
-        finally:
-            tracing.disable()
-        a['wave_stage_s'] = clock.close()
-        records = tracing.take()
+        w, a, records = serve.window_a(family, built, mix, requests, seconds, capture, sample,
+                                       a_work, program_trace=mode == 'on')
         ctx = {'cell': cell, 'a': a, 'a_work': a_work, **records}
         line = {'cell': cell['name'], 'seed': seed, 'window': i, 'program_trace': mode,
                 'requests': w['attempted'], 'failed': w['failed'],

@@ -7,6 +7,7 @@ small widths, so the program runs its CPU paths."""
 import copy
 import json
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -79,3 +80,37 @@ def on_cpu(monkeypatch):
     monkeypatch.setattr(common, 'require_devices', lambda n: None)
     monkeypatch.setattr(common, 'device_info', lambda n: dict(CPU_DEVICE))
     monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a, **k: None)
+
+
+class HostEvent:
+    """``torch.cuda.Event``'s stand-in on the CPU: the host's clock."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end) -> float:
+        return 1e3 * (end.t - self.t)
+
+
+def cpu_trace_patches() -> list:
+    """(object, attribute, stand-in) that let a traced run go on the CPU:
+    the profiler traces the host's operations in place of the card's (so
+    the trace holds no device event), and a CUDA event reads the host's
+    clock."""
+    import torch
+    real = torch.profiler.profile
+
+    def profile(activities=None, **kwargs):
+        return real(activities=[torch.profiler.ProfilerActivity.CPU], **kwargs)
+
+    return [(torch.profiler, 'profile', profile), (torch.cuda, 'Event', HostEvent)]
+
+
+@pytest.fixture
+def traced_on_cpu(on_cpu, monkeypatch):
+    """``on_cpu``, and a traced run's profiler and CUDA events on the host."""
+    for obj, name, value in cpu_trace_patches():
+        monkeypatch.setattr(obj, name, value)

@@ -6,6 +6,7 @@ import pytest
 
 from conftest import tiny_serve_config, tiny_train_config
 from h100bench import readers, roofline, trace
+from h100bench.families import forward_tts
 
 
 def test_attention_bound_counts_the_kept_products_of_a_causal_mask():
@@ -100,7 +101,8 @@ def test_serving_readers_count_the_real_rows_of_each_chunk():
     dur = torch.tensor([[[2.4], [3.6], [1.0], [0.0]], [[2.0], [2.5], [0.0], [0.0]],
                         [[0.0]] * 4], dtype=torch.bfloat16)
     ctx = {'cell': {'config_data': cfg}, 'a_work': [{'chunks': [(tokens, dur, (3, 128, 80))]}]}
-    assert readers.chunk_rows(ctx['a_work']) == [(3, 7), (2, 4)]   # 2 + 4 + 1; 2 + 2 (half to even)
+    # 2 + 4 + 1; 2 + 2 (half to even)
+    assert forward_tts.work_rows(ctx['a_work']) == [(3, 7), (2, 4)]
     m = cfg['model']
     want = sum(roofline.forward_tts_flops(m, n, t) / 989e12
                + roofline.griffin_lim_flops(cfg['audio'], t, 80) / 495e12 for n, t in ((3, 7), (2, 4)))

@@ -8,6 +8,7 @@ import pytest
 from conftest import cell, tiny_serve_config, tiny_serve_mix
 from h100bench import serve, spans
 from h100bench.common import seed_streams
+from h100bench.families import forward_tts
 from h100bench.traffic import paragraphs
 
 BASE_NS = 1_700_000_000_000_000_000
@@ -95,17 +96,16 @@ def test_the_programs_frame_counters_match_the_harness_hooks(on_cpu):
     import numpy as np
     from transformertts_torch.utils import tracing
 
-    from h100bench import readers
     c = cell(tiny_serve_config(), tiny_serve_mix())
     cfg, mix = c['config_data'], c['traffic_data']
     seed = 2 ** 31 + 11
-    model, vocoder, audio, _, _ = serve.build(cfg, mix, seed, 'cpu')
-    capture = serve.Capture(model)
+    built = forward_tts.build(cfg, mix, seed, 'cpu')
+    capture = forward_tts.Capture(built)
     a_work = []
     tracing.take()
     tracing.enable()
     try:
-        w = serve.run_window(model, vocoder, audio, mix, paragraphs(mix, seed, stream=0), 0.5,
+        w = serve.run_window(forward_tts, built, mix, paragraphs(mix, seed, stream=0), 0.5,
                              capture, serve.Sample(2, seed_streams(seed, 3)), a_work)
     finally:
         tracing.disable()
@@ -114,13 +114,13 @@ def test_the_programs_frame_counters_match_the_harness_hooks(on_cpu):
     real, slots = 0, 0
     for request in a_work:
         for tokens, dur, out_shape in request['chunks']:
-            n_tok, frames = readers.row_lengths(tokens, dur)
+            n_tok, frames = forward_tts.row_lengths(tokens, dur)
             real += int(np.maximum(1, frames[n_tok > 0]).sum())
             slots += out_shape[0] * out_shape[1]
     counters = records['counters']
     assert counters['requests'] == w['attempted'] >= 1
     assert (counters['frames_real'], counters['frame_slots']) == (real, slots)
-    assert counters['audio_samples'] == round(w['audio_s'] * audio.sampling_rate)
+    assert counters['audio_samples'] == round(w['audio_s'] * built['sampling_rate'])
     ctx = {'spans': records['spans'], 'counters': counters, 'a_work': a_work}
     assert spans.frame_pad_share(ctx) == pytest.approx(100 * (1 - real / slots))
     assert spans.frontend_ms_per_audio_s(ctx) > 0

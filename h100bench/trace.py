@@ -2,11 +2,13 @@
 
 Two traced windows follow set-up in a ``--trace 1`` run:
 
-- window A traces the device only (CUPTI: kernels, copies, fills). It gives
-  the busy seconds (the union of the device's activity intervals), the
-  window's length, each kernel's name and time, and the launch count. With
-  no Python tracing the host runs at its measured pace, so the idle share
-  is the window's.
+- window A traces the device only (CUPTI: kernels, copies, fills, and the
+  runtime calls that launched them). It gives the busy seconds (the union
+  of the device's activity intervals), the window's length, each kernel's
+  name and time, the launch count, and each device event's and launch
+  event's time and correlation id on the trace's clock, which the
+  program's spans share (``spans.py``). With no Python tracing the host
+  runs at its measured pace, so the idle share is the window's.
 - window B, a few requests or steps, also traces the host with Python
   stacks (``with_stack=True``). Each kernel is charged to the innermost
   ``transformertts_torch`` frame on the stack of the call that launched it,
@@ -42,8 +44,9 @@ def _profile(fn, with_stack: bool):
             seconds = time.perf_counter() - t0
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)['traceEvents']
-    return out, [e for e in events if e.get('ph') == 'X'], seconds
+            trace = json.load(f)
+    events = [e for e in trace['traceEvents'] if e.get('ph') == 'X']
+    return out, events, seconds, trace.get('baseTimeNanoseconds', 0)
 
 
 def union_seconds(intervals) -> float:
@@ -63,14 +66,22 @@ def union_seconds(intervals) -> float:
 
 def device_window(fn):
     """Window A: (fn's result, readings) with readings {'busy_s', 'window_s',
-    'kernels': [(name, seconds)], 'launches'}. The window is ``fn``'s call,
-    waited for on the device."""
-    out, events, window_s = _profile(fn, with_stack=False)
+    'kernels': [(name, seconds)], 'launches', 'device_events': [(ts µs,
+    dur µs, correlation)], 'launch_events': [(ts µs, correlation)],
+    'base_ns'} (the exported trace's ``baseTimeNanoseconds``: epoch ns =
+    ts · 1e3 + base). The window is ``fn``'s call, waited for on the
+    device."""
+    out, events, window_s, base_ns = _profile(fn, with_stack=False)
     dev = [e for e in events if e.get('cat') in DEVICE_CATS]
     busy_us = union_seconds((e['ts'], e['ts'] + e['dur']) for e in dev)
     kernels = [(e['name'], e['dur'] * 1e-6) for e in dev if e.get('cat') == 'kernel']
     return out, {'busy_s': busy_us * 1e-6, 'window_s': window_s,
-                 'kernels': kernels, 'launches': len(kernels)}
+                 'kernels': kernels, 'launches': len(kernels), 'base_ns': base_ns,
+                 'device_events': [(e['ts'], e['dur'], e.get('args', {}).get('correlation'))
+                                   for e in dev],
+                 'launch_events': [(e['ts'], e['args']['correlation']) for e in events
+                                   if e.get('cat') in LAUNCH_CATS
+                                   and 'correlation' in e.get('args', {})]}
 
 
 def _frame_module(name: str) -> str:
@@ -102,7 +113,7 @@ def stack_window(fn):
     """Window B: (fn's result, readings) with readings {'by_module':
     {module: device seconds}, 'device_ops': [(name, seconds)], 'idle_gaps':
     [(name, seconds)], 'window_s'}."""
-    out, events, window_s = _profile(fn, with_stack=True)
+    out, events, window_s, _ = _profile(fn, with_stack=True)
     py = [e for e in events if e.get('cat') == 'python_function']
     launch = {e['args']['correlation']: e for e in events
               if e.get('cat') in LAUNCH_CATS and 'correlation' in e.get('args', {})}

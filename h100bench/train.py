@@ -25,6 +25,8 @@ from h100bench.reference import aligner as ref_aligner
 from h100bench.reference.numerics import tf32_products
 from h100bench.traffic import aligner_batches
 
+TRAFFIC_KIND = 'aligner_batches'
+
 
 def build(cfg: dict, seed: int, device='cuda'):
     """(trainer, weights, the pool of batches)."""
@@ -182,3 +184,23 @@ def judge_cell(cell: dict, check: dict, weights: dict) -> tuple:
     limits = cfg['limits']
     checks = {k: (n[k], limits[k]) for k in ('loss_gap', 'grad_gap', 'update_gap')}
     return checks, all(n[k] <= limits[k] for k in checks)
+
+
+def control_readings(cell, seed, seconds, program_only=False) -> dict:
+    """``control.py``'s readings of a training cell on one seed: the
+    program's compared numbers, and (unless ``program_only``) the TF32
+    control's and the half-batch fault's."""
+    cfg = cell['config_data']
+    _, _, _, check, weights, _ = run_cell(cell, seed, seconds, False, time.time())
+    ref = reference_run(cfg, check['batches'], check['seeds'], weights)
+    out = {'program': compare(check, ref, weights)}
+    if program_only:
+        out['program'].pop('left_out', None)
+        return out
+    out['control'] = compare(
+        reference_run(cfg, check['batches'], check['seeds'], weights, tf32=True), ref, weights)
+    halves = [{k: v[:max(1, len(v) // 2)] for k, v in b.items()} for b in check['batches']]
+    out['half_batch'] = compare(reference_run(cfg, halves, check['seeds'], weights), ref, weights)
+    for side in out.values():
+        side.pop('left_out', None)
+    return out
